@@ -1,0 +1,20 @@
+"""ripplemq_tpu_torch — the replication engine of ripplemq_tpu in PyTorch.
+
+A port of the JAX package `ripplemq_tpu` to PyTorch and CUDA on an NVIDIA
+H100, file for file (`ripplemq_tpu_torch/core/step.py` is the twin of
+`ripplemq_tpu/core/step.py`). The JAX package is the reference the port
+is tested against; the port never imports it, nor JAX.
+
+Ported so far (the engine slice):
+
+- `core` — EngineConfig, the state/input NamedTuples of tensors, the
+  host encoder, and the control/vote/read steps over an explicit
+  leading replica axis;
+- `ops.append` — the log-append write phase: a hand-written CUDA kernel
+  (`ops/csrc/append.cu`) on the GPU, its plain PyTorch twin on the CPU;
+- `parallel.engine.make_local_fns` — the single-device engine entry
+  points (CUDA by default);
+- `convert` — numpy state/inputs from the reference into port tensors.
+"""
+
+__version__ = "0.1.0"

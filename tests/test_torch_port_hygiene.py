@@ -1,0 +1,99 @@
+"""Port hygiene: the admission list, the import boundary, the device rule.
+
+- `tests/torch_port_modules.PORT_TEST_MODULES` names exactly the
+  `tests/test_torch_*.py` files on disk (the tier-1 admission is
+  reviewed in that one list);
+- no file of `ripplemq_tpu_torch/`, and not `chip_smoke.py`, imports
+  `jax` or the JAX package `ripplemq_tpu` (checked on the AST, so an
+  import inside a function counts too);
+- the engine runs on CUDA unless asked otherwise: with no device given
+  and no GPU present, `make_local_fns` raises instead of falling back.
+"""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from tests.torch_port_modules import PORT_TEST_MODULES, admit
+
+admit(__name__)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "ripplemq_tpu")
+
+
+def _port_sources() -> list[pathlib.Path]:
+    return sorted((REPO / "ripplemq_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
+def _imported_roots(tree: ast.AST) -> set[str]:
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", None))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_admission_list_matches_files_on_disk():
+    on_disk = {p.stem for p in (REPO / "tests").glob("test_torch_*.py")}
+    assert set(PORT_TEST_MODULES) == on_disk
+    assert len(PORT_TEST_MODULES) == len(set(PORT_TEST_MODULES))
+
+
+def test_admit_refuses_unlisted_module():
+    with pytest.raises(AssertionError):
+        admit("tests.test_torch_not_listed")
+
+
+@pytest.mark.parametrize(
+    "path", _port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.exists(), path
+    roots = _imported_roots(ast.parse(path.read_text(), filename=str(path)))
+    assert not roots & set(FORBIDDEN), sorted(roots & set(FORBIDDEN))
+
+
+def test_import_scan_catches_forbidden_forms():
+    src = ("import jax.numpy as jnp\n"
+           "def f():\n    from ripplemq_tpu.core import step\n"
+           "importlib.import_module('jaxlib')\n")
+    assert _imported_roots(ast.parse(src)) >= {"jax", "ripplemq_tpu", "jaxlib"}
+
+
+def test_engine_without_device_raises_when_no_gpu(monkeypatch):
+    from ripplemq_tpu_torch.core.config import EngineConfig
+    from ripplemq_tpu_torch.parallel.engine import make_local_fns
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = EngineConfig(partitions=4, replicas=3, slots=64, slot_bytes=32,
+                       max_batch=8, read_batch=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_local_fns(cfg)
+    fns = make_local_fns(cfg, device="cpu")
+    assert fns.init().log_data.device.type == "cpu"
+
+
+def test_append_wrapper_refuses_other_devices():
+    """A tensor on neither the CPU nor a GPU gets no silent path."""
+    from ripplemq_tpu_torch.ops.append import append_rows_active
+
+    dev = "meta"
+    log = torch.empty((2, 4, 24, 32), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="no append path"):
+        append_rows_active(
+            log, torch.empty((1, 8, 32), dtype=torch.uint8, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.zeros((4,), dtype=torch.int32, device=dev),
+            torch.zeros((2, 4), dtype=torch.bool, device=dev))
