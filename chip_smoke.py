@@ -9,47 +9,89 @@ package must be importable next to it). Every phase prints one line; a
 phase that fails raises, and the script exits nonzero with no result.
 
 1. the card's name and power limit (nvidia-smi);
-2. the kernel build: `ops/csrc/append.cu` compiled by nvcc for sm_90a;
+2. the kernel builds, one nvcc each, started together:
+   `ops/csrc/append.cu` and `ops/csrc/rs.cu` for sm_90a;
 3. the append kernel against its plain PyTorch version at full width —
    the bench's headline engine shape (1024 partitions x 5 replicas,
    slots 12352, B 256, SB 128: an 8.26 GB ring log) — legacy and packed,
    A = 64 and A = 1024 active entries, both from one cloned random log,
-   the whole log compared with torch.equal;
+   the whole log compared with torch.equal; then the GF(2^8) kernel
+   against its plain version (torch.equal) at a 64 MiB segment's shard
+   length with the encode matrix and all 10 reconstruct inverses, at
+   small odd and aligned widths, a misaligned start, a 16x16 matrix, and
+   N = 0 (no launch);
 4. agreement on a small input: the engine on the GPU (kernel) and on the
    CPU (plain version) replay one scenario to equal state;
-5. the main path, once per binding (legacy; fused_control +
+5. the engine's main path, once per binding (legacy; fused_control +
    packed_writes), through `make_local_fns(cfg)` on CUDA at the headline
    shape: 16 sparse rounds (8 `step_sparse`, one `step_many_sparse`
    chain of 8) with seeded payloads and a varying active set, a vote and
    a round under the new leaders, then every committed message read back
    through `read_many` and compared byte- and count-exact with what was
-   produced, and the committed consumer offsets through `read_offset`.
-   Kernel launch counts are zeroed just before and read just after;
-6. times (CUDA events, after warm-up): ms per chained round, per kernel
-   launch, the plain version's and `index_put_`'s, the bytes/s written,
-   and peak device memory;
-7. a JSON line naming each ported kernel, then the card line again, then
+   produced, and the committed consumer offsets through `read_offset`;
+6. the storage path at full size: 32 `step_sparse` rounds (legacy,
+   A = 1024) whose committed records go into `SegmentStore(erasure=True)`
+   with 64 MiB segments, a flush per round; the store closed, every
+   sealed segment checked for 5 CRC-valid shards and no erasure errors;
+   three sealed segments damaged (a file and 2 shards lost; a flipped
+   byte and 2 shards lost; 2 parity shards lost); `recover_image` must
+   repair exactly the first two byte-exact, restore every shard set and
+   return the engine's replica-0 state;
+7. the stripe path at full size: the same rounds' records encoded as one
+   stripe group each on the card, spread over 4 standbys, one standby
+   lost, `rebuild_records` from the other three equal to the record
+   stream; every two-loss pattern of the widest group; one group's
+   frames equal to the CPU encoder's;
+   (launch counts are zeroed just before each path and read just after)
+8. times (CUDA events, after warm-up): ms per chained round, per kernel
+   launch, the plain versions' and `index_put_`'s, the bytes/s moved,
+   peak device memory, `encode_segment`'s steps for one 64 MiB segment
+   and `encode_group`'s rate at the bench's shape;
+9. a JSON line naming each ported kernel, then the card line again, then
    the result line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import hashlib
+import itertools
 import json
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from ripplemq_tpu_torch import convert
-from ripplemq_tpu_torch.core.config import ROW_HEADER, EngineConfig
+from ripplemq_tpu_torch.broker import dataplane
+from ripplemq_tpu_torch.core.config import ALIGN, ROW_HEADER, EngineConfig
 from ripplemq_tpu_torch.core.encode import decode_entries, row_extents
 from ripplemq_tpu_torch.core.state import StepInput
 from ripplemq_tpu_torch.ops import append as append_ops
 from ripplemq_tpu_torch.ops import cuda_build
+from ripplemq_tpu_torch.ops import rs as rs_ops
 from ripplemq_tpu_torch.parallel.engine import make_local_fns
+from ripplemq_tpu_torch.storage import erasure
+from ripplemq_tpu_torch.storage.segment import (
+    REC_APPEND,
+    REC_OFFSETS,
+    REC_STRIPE,
+    SegmentStore,
+)
+from ripplemq_tpu_torch.stripes.codec import (
+    encode_group,
+    parse_frame,
+    reconstruct_group,
+    stripe_assignment,
+)
+from ripplemq_tpu_torch.stripes.recovery import rebuild_records
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
@@ -66,6 +108,12 @@ KERNELS = {  # launch-count key -> (binding whose main path runs it, TPU kernel)
     "append_active_packed": ("fused+packed", "ripplemq_tpu/ops/append.py:191"),
 }
 SOURCE = "ripplemq_tpu_torch/ops/csrc/append.cu"
+RS_SOURCE = "ripplemq_tpu_torch/ops/csrc/rs.cu"
+RS_REPLACES = "ripplemq_tpu/ops/rs.py:159"
+SEG_BYTES = 64 << 20          # the cluster's segment size (cluster_config.py)
+SHARD_N = -(-SEG_BYTES // 3)  # a sealed 64 MiB segment's shard length
+STORE_ROUNDS = 32             # <= 8192 rows a partition: the ring never laps
+STORE_A = 1024
 
 
 def card_line() -> str:
@@ -469,6 +517,426 @@ def profile_chain(binding, chained, rounds, card) -> None:
                       for e in top) + f" [{card}]", flush=True)
 
 
+# ------------------------------------------------ the RS kernel
+
+
+def rs_matrices():
+    """The 2x3 encode generator and the 10 reconstruct inverses, keyed by
+    the surviving shard rows."""
+    ext = rs_ops.extended_matrix(3, 2)
+    inverses = {rows: rs_ops.gf_invert([ext[r] for r in rows])
+                for rows in itertools.combinations(range(5), 3)}
+    return rs_ops.generator_matrix(3, 2), inverses
+
+
+def rs_kernel_vs_plain(seed) -> int:
+    """The GF(2^8) kernel against its plain version, torch.equal: at a
+    sealed 64 MiB segment's shard length with the encode matrix and all
+    10 inverses, then at small odd widths (byte path) and aligned ones
+    (16-byte path), a misaligned start, the largest tiled matrix, and
+    N = 0 (no launch)."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 3)
+    rng = np.random.default_rng(seed + 3)
+
+    def rand(k, n):
+        return torch.empty((k, n), dtype=torch.uint8, device=DEV).random_(
+            generator=g)
+
+    enc, inverses = rs_matrices()
+    full = rand(3, SHARD_N)
+    cases = [("encode", enc, full)] + [
+        ("inverse" + "".join(map(str, rows)), m, full)
+        for rows, m in inverses.items()]
+    zeros3 = rng.integers(0, 256, size=(3, 3))
+    zeros3[rng.random((3, 3)) < 0.4] = 0
+    zeros3[0, 0] = zeros3[2, 1] = 0
+    zeros3 = tuple(tuple(int(c) for c in row) for row in zeros3)
+    ident = ((1, 0), (0, 1), (0, 0))
+    small = []
+    for n in (1, 7, 511, 512, 513, 4096, 5000):
+        small += [(f"3x3-with-zeros N={n}", zeros3, rand(3, n)),
+                  (f"3x2-identity N={n}", ident, rand(2, n))]
+    buf = rand(1, 3 * 4096 + 1)[0]
+    small.append(("3x3-with-zeros N=4096 at a 1-byte offset", zeros3,
+                  buf[1:].view(3, 4096)))
+    big = tuple(tuple(int(c) for c in row)
+                for row in rng.integers(0, 256, size=(16, 16)))
+    small.append(("16x16 N=5000", big, rand(16, 5000)))
+    worst = 0
+    for group, items in (("N=%d" % SHARD_N, cases), ("small", small)):
+        for name, m, s in items:
+            got = rs_ops.gf_matmul(m, s)
+            want = rs_ops.gf_matmul_plain(m, s)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            err = 0 if equal else int((got.to(torch.int16)
+                                       - want.to(torch.int16)).abs().max())
+            worst = max(worst, err)
+            if not equal:
+                raise AssertionError(f"gf_matmul {name} disagrees with its "
+                                     f"plain version (max_abs_err {err})")
+        print(f"kernel-vs-plain: gf_matmul {group}: {len(items)} cases "
+              f"equal ({', '.join(name for name, _, _ in items[:3])}, ...) "
+              f"max_abs_err=0", flush=True)
+    before = rs_ops.LAUNCHES["gf_matmul"]
+    empty = rs_ops.gf_matmul(enc, rand(3, 0))
+    if tuple(empty.shape) != (2, 0) or rs_ops.LAUNCHES["gf_matmul"] != before:
+        raise AssertionError("gf_matmul N=0 must return (2, 0) with no launch")
+    print("kernel-vs-plain: gf_matmul N=0 -> (2, 0), no launch", flush=True)
+    del full, cases, small
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_rs(seed, card) -> dict:
+    """ms per launch at a 64 MiB segment's shard length (byte path, as the
+    segment encoder runs it) and at the next 16-byte multiple (the
+    vector path the stripe codec's padded widths take), beside the plain
+    version and the byte bound. No single PyTorch call computes a GF(2^8)
+    product, so there is no library time."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 4)
+    enc, inverses = rs_matrices()
+    out = {}
+    for label, m, n in (("encode", enc, SHARD_N),
+                        ("reconstruct", inverses[(1, 2, 3)], SHARD_N),
+                        ("encode_aligned", enc, -(-SHARD_N // 16) * 16)):
+        s = torch.empty((len(m[0]), n), dtype=torch.uint8,
+                        device=DEV).random_(generator=g)
+        ms = cuda_time_ms(lambda: rs_ops.gf_matmul(m, s), reps=50)
+        plain_ms = cuda_time_ms(lambda: rs_ops.gf_matmul_plain(m, s), reps=5)
+        moved = (len(m) + len(m[0])) * n
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(f"time: gf_matmul {label} {len(m)}x{len(m[0])} N={n}: "
+              f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, library: none, "
+              f"bound {bound_ms:.4f} ms ({moved} B at 3.35 TB/s), "
+              f"{moved / ms / 1e6:.1f} GB/s moved [{card}]", flush=True)
+        del s
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------ the storage path
+
+
+def round_records(inp, entries_c, slot_ids, base, committed):
+    """One round's committed writes as store records, framed as the
+    reference DataPlane frames them (`_round_records`): each appending
+    partition's REC_APPEND (its ALIGN-rounded rows at the round's
+    absolute base), then each committing partition's REC_OFFSETS
+    (consumer slot, offset) pairs."""
+    recs = []
+    for a, p in enumerate(slot_ids):
+        n = int(inp.counts[p]) if p >= 0 else 0
+        if n == 0 or not committed[p]:
+            continue
+        adv = -(-n // ALIGN) * ALIGN
+        recs.append((REC_APPEND, int(p), int(base[p]),
+                     entries_c[a, :adv].tobytes()))
+    for p in np.flatnonzero(inp.off_counts > 0):
+        if not committed[p]:
+            continue
+        c = int(inp.off_counts[p])
+        pairs = zip(inp.off_slots[p, :c], inp.off_vals[p, :c])
+        recs.append((REC_OFFSETS, int(p), c, b"".join(
+            struct.pack("<II", int(s), int(o)) for s, o in pairs)))
+    return recs
+
+
+def valid_shards(store_dir, name) -> int:
+    return sum(erasure._read_shard(p) is not None
+               for p in erasure.shard_paths(store_dir, name))
+
+
+def digest(path) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def storage_path(seed, card, workdir):
+    """Sealed-segment protection and recovery at full size: the engine's
+    committed rounds into an erasure-coded store of 64 MiB segments, the
+    store closed, three sealed segments damaged, `recover_image` run,
+    and the image held against the engine's replica 0. Returns the
+    rounds' records and the kernel launches by step."""
+    cfg = EngineConfig(**HEADLINE)  # the legacy binding
+    R, P = cfg.replicas, cfg.partitions
+    rng = np.random.default_rng(seed + 5)
+    fns = make_local_fns(cfg)
+    state = fns.init()
+    exp = Expected(cfg)
+    leader = np.arange(P) % R
+    alive = np.ones(R, bool)
+    store_dir = os.path.join(workdir, "store")
+    rounds = []
+
+    rs_ops.reset_launches()
+    t0 = time.perf_counter()
+    store = SegmentStore(store_dir, segment_bytes=SEG_BYTES, erasure=True)
+    for _ in range(STORE_ROUNDS):
+        inp, ec, ids, produced = make_round(rng, cfg, STORE_A, 1, leader)
+        state, out = fns.step_sparse(state, inp, ec, ids, alive)
+        committed = out.committed.cpu().numpy()
+        exp.commit(inp, produced, committed)
+        recs = round_records(inp, ec, ids, out.base.cpu().numpy(), committed)
+        store.append_many(recs)
+        store.flush()
+        rounds.append(recs)
+    native = store.is_native  # close() drops the native handle
+    store.close()
+    torch.cuda.synchronize()
+    protect_launches = rs_ops.LAUNCHES["gf_matmul"]
+    drive_s = time.perf_counter() - t0
+    nbytes = sum(len(r[3]) for recs in rounds for r in recs)
+    sealed = erasure._segment_names(store_dir)[:-1]
+    if store.erasure_errors:
+        raise AssertionError(f"erasure_errors: {store.erasure_errors}")
+    if len(sealed) < 3:
+        raise AssertionError(f"only {len(sealed)} sealed segments")
+    short = [n for n in sealed if valid_shards(store_dir, n) != 5]
+    if short:
+        raise AssertionError(f"sealed segments without 5 valid shards: {short}")
+    if protect_launches < len(sealed):
+        raise AssertionError(f"{protect_launches} gf_matmul launches for "
+                             f"{len(sealed)} sealed segments")
+    print(f"storage path: {STORE_ROUNDS} step_sparse rounds (A={STORE_A}) "
+          f"-> {nbytes} B of records in {len(sealed)} sealed "
+          f"{SEG_BYTES >> 20} MiB segments + 1 active ({'native' if native else 'Python'}"
+          f" store), each sealed segment with 5 CRC-valid shards, "
+          f"erasure_errors [], gf_matmul launches while protecting: "
+          f"{protect_launches}, {drive_s:.2f} s [{card}]", flush=True)
+
+    eng = {leaf: getattr(state, leaf)[0].cpu().numpy()
+           for leaf in ("log_end", "commit", "last_term", "offsets")}
+    eng_log = state.log_data[0].cpu().numpy()
+    if not np.array_equal(eng["log_end"], exp.end):
+        raise AssertionError("engine log end differs from the produced extent")
+    del state, fns
+    torch.cuda.empty_cache()
+
+    a, b, c = sealed[0], sealed[len(sealed) // 2], sealed[-1]
+    before = {n: digest(os.path.join(store_dir, n)) for n in (a, b, c)}
+    def shard(n, i):
+        return erasure.shard_paths(store_dir, n)[i]
+
+    os.remove(os.path.join(store_dir, a))
+    os.remove(shard(a, 0))
+    os.remove(shard(a, 2))
+    path_b = os.path.join(store_dir, b)
+    with open(path_b, "r+b") as f:
+        f.seek(os.path.getsize(path_b) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    os.remove(shard(b, 1))
+    os.remove(shard(b, 4))
+    os.remove(shard(c, 3))
+    os.remove(shard(c, 4))
+
+    repaired = []
+    repair_s = []
+    real_repair = dataplane.repair_store
+
+    def recording_repair(*args, **kw):
+        t = time.perf_counter()
+        repaired.append(real_repair(*args, **kw))
+        repair_s.append(time.perf_counter() - t)
+        return repaired[-1]
+
+    rs_ops.reset_launches()
+    dataplane.repair_store = recording_repair
+    try:
+        t0 = time.perf_counter()
+        image = dataplane.recover_image(cfg, store_dir)
+        recover_s = time.perf_counter() - t0
+    finally:
+        dataplane.repair_store = real_repair
+    recover_launches = rs_ops.LAUNCHES["gf_matmul"]
+    if repaired != [[a, b]]:
+        raise AssertionError(f"repair_store repaired {repaired}, want {[a, b]}")
+    for n in (a, b, c):
+        if digest(os.path.join(store_dir, n)) != before[n]:
+            raise AssertionError(f"{n} differs from its bytes before the damage")
+    short = [n for n in sealed if valid_shards(store_dir, n) != 5]
+    if short:
+        raise AssertionError(f"after recovery, sets short of 5 shards: {short}")
+    img = convert.image_to_numpy(image)
+    for leaf, want in eng.items():
+        if not np.array_equal(img[leaf], want):
+            raise AssertionError(f"recovered image differs on {leaf}")
+    # Rows at and past log_end: the engine holds the last round's window
+    # padding there (it writes whole B-row windows); the store never does.
+    rows = np.arange(eng_log.shape[1])[None, :] < eng["log_end"][:, None]
+    if not np.array_equal(img["log_data"][rows], eng_log[rows]):
+        raise AssertionError("recovered log rows differ below log_end")
+    print(f"storage path: recover_image repaired {repaired[0]} byte-exact "
+          f"(a: file + shards 0,2 lost; b: a flipped byte + shards 1,4 "
+          f"lost; c: parity 3,4 lost, re-encoded), every sealed set back at "
+          f"5 valid shards, image == engine replica 0 on log_end, commit, "
+          f"last_term, offsets and {int(rows.sum())} committed rows; "
+          f"gf_matmul launches while recovering: {recover_launches}, "
+          f"{recover_s:.2f} s ({repair_s[0]:.2f} s in repair_store, "
+          f"{recover_s - repair_s[0]:.2f} s scanning and replaying) "
+          f"[{card}]", flush=True)
+    return rounds, {"protect": protect_launches, "recover": recover_launches}
+
+
+# ------------------------------------------------ the stripe path
+
+
+def stripe_path(rounds, card) -> dict:
+    """Striped replication at full size: each round's records encoded as
+    one stripe group on the card, the frames spread over 4 standbys by
+    the replicated assignment, one standby lost, and the record stream
+    rebuilt from the other three."""
+    members = [1, 2, 3, 4]
+    held = stripe_assignment(members)
+    stores = {m: [] for m in members}
+    groups = []
+    rs_ops.reset_launches()
+    t0 = time.perf_counter()
+    for k, recs in enumerate(rounds):
+        frames = encode_group(recs, epoch=1, gsn=k, settled_floor=k)
+        groups.append(frames)
+        for i, f in enumerate(frames):
+            stores[held[i]].append((REC_STRIPE, i, k, f))
+    encode_s = time.perf_counter() - t0
+    encode_launches = rs_ops.LAUNCHES["gf_matmul"]
+
+    def fetcher(records):
+        def fetch(after):
+            return [r[3] for r in records], None
+        return fetch
+
+    lost = [i for i, m in enumerate(held) if m == 1]
+    rs_ops.reset_launches()
+    t0 = time.perf_counter()
+    got = rebuild_records(iter(stores[2]), [("member3", fetcher(stores[3])),
+                                            ("member4", fetcher(stores[4]))])
+    rebuild_s = time.perf_counter() - t0
+    rebuild_launches = rs_ops.LAUNCHES["gf_matmul"]
+    want = [r for recs in rounds for r in recs]
+    if got != want:
+        raise AssertionError("the rebuilt record stream differs from the "
+                             "controller's")
+    if rebuild_launches != len(rounds):
+        raise AssertionError(f"{rebuild_launches} reconstruct launches for "
+                             f"{len(rounds)} groups")
+    nbytes = sum(len(r[3]) for r in want)
+    frame_bytes = sum(len(f) for frames in groups for f in frames)
+    print(f"stripe path: {len(rounds)} groups encoded on the card "
+          f"({nbytes} B of records -> {frame_bytes} B of frames, "
+          f"{encode_launches} launches, {encode_s:.2f} s), member 1 lost "
+          f"(stripes {lost}), rebuild_records from members 2-4 == the "
+          f"controller's {len(want)} records in order, {rebuild_launches} "
+          f"reconstruct launches, {rebuild_s:.2f} s [{card}]", flush=True)
+
+    widest = max(range(len(rounds)), key=lambda k: len(groups[k][0]))
+    parsed = {i: parse_frame(f) for i, f in enumerate(groups[widest])}
+    for gone in itertools.combinations(range(5), 2):
+        frames = {i: f for i, f in parsed.items() if i not in gone}
+        if reconstruct_group(frames) != rounds[widest]:
+            raise AssertionError(f"group {widest} with stripes {gone} lost "
+                                 f"reconstructs wrong records")
+    smallest = min(range(len(rounds)), key=lambda k: len(groups[k][0]))
+    cpu = encode_group(rounds[smallest], epoch=1, gsn=smallest,
+                       settled_floor=smallest, device="cpu")
+    if cpu != groups[smallest]:
+        raise AssertionError("card frames differ from the CPU encoder's")
+    print(f"stripe path: widest group ({len(groups[widest][0])} B stripes) "
+          f"reconstructs under all 10 two-loss patterns; group {smallest}'s "
+          f"frames byte-equal to encode_group(device='cpu')", flush=True)
+    return {"encode": encode_launches, "rebuild": rebuild_launches}
+
+
+def time_erasure(workdir, card) -> None:
+    """Where `encode_segment`'s time goes for one 64 MiB segment (its
+    steps timed one by one with a synchronise after each), and
+    `encode_group`'s rate at the reference bench's shape."""
+    d = os.path.join(workdir, "seg64")
+    os.makedirs(d)
+    name = "segment-00000000.log"
+    path = os.path.join(d, name)
+    with open(path, "wb") as f:
+        f.write(np.random.default_rng(1).integers(
+            0, 256, SEG_BYTES, dtype=np.uint8).tobytes())
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        erasure.encode_segment(d, name)
+        walls.append(time.perf_counter() - t0)
+
+    steps = {}
+
+    def step(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    raw = step("read", lambda: open(path, "rb").read())
+    n = -(-len(raw) // 3)
+
+    def prep():
+        padded = np.zeros(3 * n, np.uint8)
+        padded[:len(raw)] = np.frombuffer(raw, np.uint8)
+        return padded.reshape(3, n)
+
+    data = step("host pad", prep)
+    dev = step("host->device", lambda: torch.from_numpy(data).to(DEV))
+    parity = step("kernel", lambda: rs_ops.rs_encode(dev))
+    host = step("device->host", lambda: parity.cpu().numpy())
+    step("crc32", lambda: [zlib.crc32(raw)] + [
+        zlib.crc32(x.tobytes()) for x in (*data, *host)])
+    out_dir = os.path.join(d, "split")
+    os.makedirs(out_dir)
+
+    def write():
+        for i, x in enumerate((*data, *host)):
+            with open(os.path.join(out_dir, f"shard{i}"), "wb") as f:
+                f.write(erasure._HEADER.pack(0, 0, i, 3, 2, 0, 0, 0)
+                        + x.tobytes())
+                f.flush()
+                os.fsync(f.fileno())
+
+    step("shard writes + fsync", write)
+    total = sum(steps.values())
+    print(f"time: encode_segment of one {SEG_BYTES} B segment: "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms wall (3 calls); "
+          "its steps one by one: " + ", ".join(
+              f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
+              for k, v in steps.items()) + f" [{card}]", flush=True)
+
+    records = [(1, 0, i, bytes(64 << 10)) for i in range(64)]
+    nbytes = sum(len(r[3]) for r in records)
+    encode_group(records, 1, 0)
+    rates = []
+    for r in range(1, 6):
+        t0 = time.perf_counter()
+        encode_group(records, 1, r)
+        rates.append(nbytes / (time.perf_counter() - t0) / 1e6)
+    print(f"time: encode_group at the bench's shape (64 records of 64 KiB): "
+          f"best {max(rates):.1f} MB/s, runs "
+          + ", ".join(f"{x:.1f}" for x in rates) + f" [{card}]", flush=True)
+
+
+def build_kernels() -> None:
+    """Both kernel libraries, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(append_ops.build), pool.submit(rs_ops.build)]:
+            f.result()
+    for name in ("append", "rs"):
+        built_s, report = cuda_build.BUILD_INFO[name]
+        regs = "; ".join(line.strip() for line in report.splitlines()
+                         if "registers" in line)
+        print(f"build: {name}.cu {'built' if built_s else 'cached'} in "
+              f"{built_s:.2f} s (nvcc sm_90a; {regs})", flush=True)
+    print(f"build: both kernels ready in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -482,17 +950,12 @@ def main() -> int:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
-    t0 = time.perf_counter()
-    append_ops.build()
-    built_s, report = cuda_build.BUILD_INFO["append"]
-    regs = "; ".join(line.strip() for line in report.splitlines()
-                     if "registers" in line)
-    print(f"build: append.cu {'built' if built_s else 'cached'} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc sm_90a; {regs})", flush=True)
-
+    build_kernels()
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
+    errs["gf_matmul"] = rs_kernel_vs_plain(args.seed)
     times = time_kernels(append_ops, cfg, args.seed, card)
+    rs_times = time_rs(args.seed, card)
     small_agreement(args.seed)
     launches = {}
     for binding in BINDINGS:
@@ -500,6 +963,11 @@ def main() -> int:
         for name, (b, _) in KERNELS.items():
             if b == binding:
                 launches[name] = got[name]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+        rounds, rs_storage = storage_path(args.seed, card, workdir)
+        rs_stripes = stripe_path(rounds, card)
+        del rounds
+        time_erasure(workdir, card)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=launches[name], max_abs_err=errs[name],
@@ -508,6 +976,18 @@ def main() -> int:
                     library_ms=times[name]["library_ms"],
                     matched_plain=errs[name] == 0)
                for name, (_, replaces) in KERNELS.items()]
+    enc = rs_times["encode"]
+    kernels.append(dict(
+        name="gf_matmul", route="cuda", source=RS_SOURCE,
+        replaces=RS_REPLACES,
+        launches=sum(rs_storage.values()) + sum(rs_stripes.values()),
+        launches_by_path={"storage": rs_storage, "stripes": rs_stripes},
+        max_abs_err=errs["gf_matmul"], ms=enc["ms"], plain_ms=enc["plain_ms"],
+        bound_ms=enc["bound_ms"], bound_by="bytes", library_ms=None,
+        shape=f"2x3 encode, N={SHARD_N}",
+        reconstruct=rs_times["reconstruct"],
+        encode_aligned=rs_times["encode_aligned"],
+        matched_plain=errs["gf_matmul"] == 0))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")
     print(json.dumps({"ok": True, "device": {

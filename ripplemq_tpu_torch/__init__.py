@@ -5,16 +5,26 @@ H100, file for file (`ripplemq_tpu_torch/core/step.py` is the twin of
 `ripplemq_tpu/core/step.py`). The JAX package is the reference the port
 is tested against; the port never imports it, nor JAX.
 
-Ported so far (the engine slice):
+Ported so far (the engine and erasure-coding slices):
 
 - `core` — EngineConfig, the state/input NamedTuples of tensors, the
   host encoder, and the control/vote/read steps over an explicit
   leading replica axis;
 - `ops.append` — the log-append write phase: a hand-written CUDA kernel
   (`ops/csrc/append.cu`) on the GPU, its plain PyTorch twin on the CPU;
+- `ops.rs` — the GF(2⁸) Reed–Solomon product: a hand-written CUDA
+  kernel (`ops/csrc/rs.cu`) on the GPU, its plain twin on the CPU;
 - `parallel.engine.make_local_fns` — the single-device engine entry
   points (CUDA by default);
-- `convert` — numpy state/inputs from the reference into port tensors.
+- `stripes` — the stripe codec and the rebuilt-from-any-k recovery;
+- `storage` — the segment store and sealed-segment RS(3,2) protection;
+- `broker.dataplane` — `recover_image` / `replay_records`;
+- `obs.lockwitness`, `utils` — the host helpers those need;
+- `convert` — numpy state/inputs/images from the reference into port
+  tensors.
+
+Entry points run on CUDA unless the caller passes `device="cpu"`; with
+no GPU and no device given they raise.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ The reference engine's state and round inputs are NamedTuples of arrays;
 given as numpy arrays (leaf by leaf, by field name, in either the named
 or the fused-ctrl layout), these functions build the port's tensors on a
 given device in the layout an `EngineConfig` asks for, and back. The
-parity tests use them to start both engines from one state.
+parity tests use them to start both engines from one state. A recovered
+single-replica image (`broker.dataplane.recover_image`: the same named
+leaves without the [R] axis) crosses the same way.
 """
 
 from __future__ import annotations
@@ -73,4 +75,23 @@ def state_to_numpy(state) -> dict[str, np.ndarray]:
             for name, leaf in state._asdict().items()}
 
 
-__all__ = ["state_from_numpy", "input_from_numpy", "state_to_numpy"]
+def image_from_numpy(image, device="cpu") -> ReplicaState:
+    """A single-replica image ([P, ...] leaves by name, e.g. the
+    reference's `recover_image` result) → the port's ReplicaState of
+    tensors on `device`."""
+    f = _fields(image)
+    return ReplicaState(
+        log_data=_tensor(f["log_data"], torch.uint8, device),
+        offsets=_tensor(f["offsets"], torch.int32, device),
+        **{name: _tensor(f[name], torch.int32, device) for name in CTRL_FIELDS},
+    )
+
+
+def image_to_numpy(image) -> dict[str, np.ndarray]:
+    """The port's single-replica image → {field name: numpy copy} (the
+    same leaf-wise copy as `state_to_numpy`)."""
+    return state_to_numpy(image)
+
+
+__all__ = ["state_from_numpy", "input_from_numpy", "state_to_numpy",
+           "image_from_numpy", "image_to_numpy"]

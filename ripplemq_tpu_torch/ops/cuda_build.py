@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}  # one per kernel: builds overlap
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building, 0.0 when the cached library loaded;
 #          the compiler's resource report)
@@ -50,8 +51,11 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The compiled library for `csrc/<name>.cu`, built on first use."""
+    """The compiled library for `csrc/<name>.cu`, built on first use.
+    Different kernels may build at the same time from several threads."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -1,0 +1,289 @@
+"""Stripe codec: the ONE Reed–Solomon geometry plus the wire/store frame
+format of the striped replication plane (PyTorch port).
+
+Twin of `ripplemq_tpu/stripes/codec.py`; frames are byte-identical to
+the reference's. A *group* is one sender group-commit's worth of
+committed-round records (the exact (rec_type, slot, base, payload)
+tuples the segment store persists), serialized into one blob and
+encoded into RS_K data + RS_M parity stripes with ONE GF(2⁸) matmul
+through ops/rs.py — the CUDA kernel on the GPU, the plain torch version
+on the CPU. Any RS_K of the RS_K+RS_M stripes reconstruct the blob
+byte-for-byte (extended-Cauchy MDS property, ops/rs.py), so shipping
+DISTINCT stripes to distinct standbys buys R=5-equivalent 2-loss
+durability at (k+m)/k ≈ 1.67× replication bytes instead of full copies'
+(R−1)×.
+
+Shard lengths are padded up to a bounded ladder of SIZE CLASSES before
+encoding (`_shard_class`, kept from the reference, where each class is
+one compiled program) — compute pads, wire bytes do not: the GF matmul
+is per-byte-column independent, so parity columns beyond the real shard
+length are zero and are trimmed before framing (data stripes ship
+exactly their slice of the blob). Every class is a multiple of 512
+bytes, so the kernel takes its 16-byte vector path here. Replication
+byte cost therefore stays (k+m)/k × blob + k+m frame headers,
+independent of the class ladder.
+
+The sealed-segment protection plane (storage/erasure.py) imports RS_K /
+RS_M from here: one geometry, two consumers — the off-path segment
+shards and the hot-path stripes reconstruct with the same matrices.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Iterable, NamedTuple, Optional
+
+import numpy as np
+
+from ripplemq_tpu_torch.ops.rs import gf_matmul, generator_matrix, rs_reconstruct
+
+# The one RS geometry (storage/erasure.py aliases these as K / M).
+RS_K = 3
+RS_M = 2
+
+_MAGIC = 0x53545250  # "STRP"
+_VERSION = 1
+# Flag bits (the `flags` byte of the frame header).
+FLAG_CATCHUP = 0x01  # group carries the catch-up prefix stream, not a
+#                      live round: replay orders it BEFORE same-epoch
+#                      live groups (see recovery.replay_order_key)
+FLAG_TOMBSTONE = 0x02  # the group was terminally NACKED after some of
+#                        its stripes may have shipped: recovery must
+#                        DROP the group (its producers saw a refusal)
+#                        instead of reading its partial leftovers as
+#                        acked loss once the settled floor passes it
+
+# magic u32, version u8, flags u8, stripe idx u8, k u8, m u8,
+# epoch u32, gsn u64, settled floor u64, blob length u64, blob crc u32,
+# frame crc u32. The frame crc covers every header byte before it plus
+# the stripe payload (the storage/segment.py header-covered-CRC
+# discipline: a flipped bit in idx/gsn/orig_len must refuse exactly
+# like payload rot). `settled floor` is the encoder's contiguous-settle
+# watermark — the highest gsn below-or-at which every live group of
+# this epoch had reached its k-ack quorum when this frame was encoded.
+# Recovery uses it to discriminate acked loss from a torn tail: a group
+# at-or-below any observed floor MUST reconstruct (its rounds were
+# acked — shortfall is quarantine-grade), one above every floor may
+# drop (it never settled; its producers were never acked).
+_HEADER = struct.Struct("<IBBBBBIQQQII")
+_HEADER_PREFIX_LEN = _HEADER.size - 4  # bytes the frame crc covers
+
+# Per-record framing inside a group blob: type u8, slot u32, base u32,
+# payload length u32 (the segment store's own field widths), payload.
+_REC = struct.Struct("<BIII")
+_BLOB_COUNT = struct.Struct("<I")
+
+
+class StripeFrame(NamedTuple):
+    """One parsed, CRC-validated stripe frame."""
+
+    epoch: int
+    gsn: int
+    idx: int
+    k: int
+    m: int
+    flags: int
+    settled_floor: int  # encoder's contiguous-settle watermark (gsn)
+    orig_len: int  # blob length before striping
+    blob_crc: int
+    payload: bytes
+
+    @property
+    def key(self) -> tuple[int, int]:
+        """Group identity: (epoch, gsn). gsn restarts at 0 per
+        controller generation; the epoch disambiguates."""
+        return (self.epoch, self.gsn)
+
+    @property
+    def catchup(self) -> bool:
+        return bool(self.flags & FLAG_CATCHUP)
+
+    @property
+    def tombstone(self) -> bool:
+        return bool(self.flags & FLAG_TOMBSTONE)
+
+
+def serialize_records(records: Iterable[tuple[int, int, int, bytes]]) -> bytes:
+    """Records → one group blob (count header + framed records)."""
+    parts = [b""]
+    n = 0
+    for rec_type, slot, base, payload in records:
+        parts.append(_REC.pack(int(rec_type), int(slot) & 0xFFFFFFFF,
+                               int(base) & 0xFFFFFFFF, len(payload)))
+        parts.append(bytes(payload))
+        n += 1
+    parts[0] = _BLOB_COUNT.pack(n)
+    return b"".join(parts)
+
+
+def deserialize_records(blob: bytes) -> list[tuple[int, int, int, bytes]]:
+    """Group blob → records. Raises ValueError on framing damage (the
+    blob CRC already passed, so damage here is a codec bug, not rot)."""
+    if len(blob) < _BLOB_COUNT.size:
+        raise ValueError("stripe blob shorter than its count header")
+    (n,) = _BLOB_COUNT.unpack_from(blob, 0)
+    pos = _BLOB_COUNT.size
+    out: list[tuple[int, int, int, bytes]] = []
+    for _ in range(n):
+        if pos + _REC.size > len(blob):
+            raise ValueError("stripe blob truncated mid-record-header")
+        t, slot, base, length = _REC.unpack_from(blob, pos)
+        pos += _REC.size
+        if pos + length > len(blob):
+            raise ValueError("stripe blob truncated mid-payload")
+        out.append((t, slot, base, blob[pos : pos + length]))
+        pos += length
+    return out
+
+
+# --------------------------------------------------------------- size
+# classes: the reference's GF matmul compiles once per static shard
+# length, so shard lengths round UP to a bounded ladder (512 B steps to
+# 16 KiB, then ×1.25 geometric) — a handful of programs cover every blob
+# size. The port keeps the ladder as it is: it pads compute only.
+_PACK = 512  # the reference kernel's packing width (bytes per lane row)
+_LINEAR_MAX = 16 << 10
+
+
+def _shard_class(n: int) -> int:
+    """Smallest ladder entry >= n (compute padding only — parity
+    columns past the real shard length are zero and never shipped)."""
+    n = max(n, 1)
+    if n <= _LINEAR_MAX:
+        return -(-n // _PACK) * _PACK
+    c = _LINEAR_MAX
+    while c < n:
+        c = -(-(c * 5) // (4 * _PACK)) * _PACK  # ×1.25, snapped to _PACK
+    return c
+
+
+def stripe_assignment(standbys: Iterable[int]) -> tuple[int, ...]:
+    """Deterministic stripe→member map: stripe i is held by
+    sorted(standbys)[i % len]. Every apply derives the identical tuple
+    from the replicated standby set, so 'who holds what' is itself
+    replicated metadata (promotion consults it; recovery asks every
+    live broker anyway, so the map is a routing fact, not a safety
+    dependency). With fewer than RS_K+RS_M members the map wraps —
+    distinct stripes still go to distinct standbys as far as the set
+    allows, and ALL k+m stripes are always held somewhere in the set."""
+    members = sorted(set(int(b) for b in standbys))
+    if not members:
+        return ()
+    return tuple(members[i % len(members)] for i in range(RS_K + RS_M))
+
+
+# ------------------------------------------------------------- encode
+
+def encode_group(records: Iterable[tuple[int, int, int, bytes]],
+                 epoch: int, gsn: int, *, catchup: bool = False,
+                 tombstone: bool = False,
+                 settled_floor: int = 0,
+                 **kw) -> list[bytes]:
+    """Encode one group of records into RS_K+RS_M stripe frames.
+
+    ONE gf_matmul computes the parity block (data stripes are plain
+    slices of the blob — the identity rows of the extended generator
+    need no compute). `kw` routes to ops/rs.gf_matmul (`device`); the
+    default is CUDA, and with no GPU and no `device` it raises."""
+    blob = serialize_records(records)
+    blob_crc = zlib.crc32(blob) & 0xFFFFFFFF
+    n = -(-max(len(blob), 1) // RS_K)  # shard length (ceil; >=1)
+    nc = _shard_class(n)
+    # Shard the blob at width n (data stripe i IS blob[i*n:(i+1)*n]),
+    # then zero-pad each shard to the class width for the matmul only:
+    # the GF product is per-byte-column independent, so parity columns
+    # past n are zero and the [:, :n] trim is exact.
+    padded = np.zeros(RS_K * n, np.uint8)
+    padded[: len(blob)] = np.frombuffer(blob, np.uint8)
+    data = padded.reshape(RS_K, n)
+    data_c = np.zeros((RS_K, nc), np.uint8)
+    data_c[:, :n] = data
+    parity = gf_matmul(
+        generator_matrix(RS_K, RS_M), data_c, **kw
+    )[:, :n].cpu().numpy()
+    flags = (FLAG_CATCHUP if catchup else 0) | (
+        FLAG_TOMBSTONE if tombstone else 0
+    )
+    frames: list[bytes] = []
+    for i in range(RS_K + RS_M):
+        if i < RS_K:
+            payload = data[i].tobytes()
+        else:
+            payload = parity[i - RS_K].tobytes()
+        prefix = _HEADER.pack(
+            _MAGIC, _VERSION, flags, i, RS_K, RS_M,
+            int(epoch) & 0xFFFFFFFF, int(gsn), int(settled_floor),
+            len(blob), blob_crc, 0,
+        )[:_HEADER_PREFIX_LEN]
+        crc = zlib.crc32(payload, zlib.crc32(prefix)) & 0xFFFFFFFF
+        frames.append(prefix + struct.pack("<I", crc) + payload)
+    return frames
+
+
+def parse_frame(frame: bytes) -> Optional[StripeFrame]:
+    """Parse + CRC-validate one stripe frame; None on ANY damage (a
+    rotted stripe counts as missing, never as wrong bytes)."""
+    if len(frame) < _HEADER.size:
+        return None
+    (magic, version, flags, idx, k, m, epoch, gsn, floor, orig_len,
+     blob_crc, frame_crc) = _HEADER.unpack_from(frame, 0)
+    if magic != _MAGIC or version != _VERSION:
+        return None
+    if (k, m) != (RS_K, RS_M) or idx >= k + m:
+        return None
+    payload = frame[_HEADER.size :]
+    if len(payload) != -(-max(orig_len, 1) // k):
+        return None
+    if zlib.crc32(
+        payload, zlib.crc32(frame[:_HEADER_PREFIX_LEN])
+    ) & 0xFFFFFFFF != frame_crc:
+        return None
+    return StripeFrame(epoch=epoch, gsn=gsn, idx=idx, k=k, m=m,
+                       flags=flags, settled_floor=floor,
+                       orig_len=orig_len, blob_crc=blob_crc,
+                       payload=payload)
+
+
+class StripeShortError(Exception):
+    """Fewer than RS_K valid stripes of a group survive: the blob is
+    unrecoverable from what the caller supplied."""
+
+
+def reconstruct_group(
+    frames: dict[int, StripeFrame], **kw
+) -> list[tuple[int, int, int, bytes]]:
+    """Rebuild one group's records from any RS_K of its stripes
+    (`frames` maps stripe idx → parsed frame). Raises StripeShortError
+    below k, ValueError on mixed generations or a blob-CRC mismatch
+    (bytes reconstructed but provably wrong — treat as damage)."""
+    valid = {i: f for i, f in frames.items() if f is not None}
+    if len(valid) < RS_K:
+        raise StripeShortError(
+            f"only {len(valid)} valid stripes, need {RS_K}"
+        )
+    metas = {(f.epoch, f.gsn, f.orig_len, f.blob_crc, len(f.payload))
+             for f in valid.values()}
+    if len(metas) != 1:
+        raise ValueError(f"mixed stripe generations in group: {metas}")
+    any_f = next(iter(valid.values()))
+    n = len(any_f.payload)
+    if all(i in valid for i in range(RS_K)):
+        blob = b"".join(valid[i].payload for i in range(RS_K))
+    else:
+        present = {
+            i: np.frombuffer(valid[i].payload, np.uint8)
+            for i in sorted(valid)[:RS_K]
+        }
+        nc = _shard_class(n)
+        padded = {
+            i: np.pad(v, (0, nc - n)) for i, v in present.items()
+        }
+        data = rs_reconstruct(
+            padded, k=RS_K, m=RS_M, **kw
+        )[:, :n].cpu().numpy()
+        blob = data.reshape(-1).tobytes()
+    blob = blob[: any_f.orig_len]
+    if zlib.crc32(blob) & 0xFFFFFFFF != any_f.blob_crc:
+        raise ValueError("reconstructed blob fails its recorded CRC")
+    return deserialize_records(blob)

@@ -6,8 +6,11 @@
 - no file of `ripplemq_tpu_torch/`, and not `chip_smoke.py`, imports
   `jax` or the JAX package `ripplemq_tpu` (checked on the AST, so an
   import inside a function counts too);
-- the engine runs on CUDA unless asked otherwise: with no device given
-  and no GPU present, `make_local_fns` raises instead of falling back.
+- the engine and the erasure-coding entry points run on CUDA unless
+  asked otherwise: with no device given and no GPU present,
+  `make_local_fns`, `gf_matmul`, `encode_group`, `encode_segment`,
+  `SegmentStore(erasure=True)` and `recover_image` raise instead of
+  falling back; a tensor on neither the CPU nor a GPU gets no path.
 """
 
 from __future__ import annotations
@@ -97,3 +100,65 @@ def test_append_wrapper_refuses_other_devices():
             torch.zeros((1,), dtype=torch.int32, device=dev),
             torch.zeros((4,), dtype=torch.int32, device=dev),
             torch.zeros((2, 4), dtype=torch.bool, device=dev))
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _sealed_store(tmp_path):
+    from ripplemq_tpu_torch.storage.segment import REC_APPEND, SegmentStore
+
+    d = str(tmp_path / "store")
+    store = SegmentStore(d, segment_bytes=256, use_native=False)
+    for i in range(8):
+        store.append(REC_APPEND, 0, 8 * i, bytes(range(64)))
+    store.close()
+    return d
+
+
+def test_erasure_entry_points_raise_without_device_when_no_gpu(no_gpu,
+                                                                tmp_path):
+    import numpy as np
+
+    from ripplemq_tpu_torch.broker.dataplane import recover_image
+    from ripplemq_tpu_torch.core.config import EngineConfig
+    from ripplemq_tpu_torch.ops.rs import gf_matmul, generator_matrix
+    from ripplemq_tpu_torch.storage.erasure import encode_segment
+    from ripplemq_tpu_torch.storage.segment import SegmentStore
+    from ripplemq_tpu_torch.stripes.codec import encode_group
+
+    shards = np.zeros((3, 16), np.uint8)
+    store = _sealed_store(tmp_path)
+    seg0 = "segment-00000000.log"
+    cfg = EngineConfig(partitions=4, replicas=3, slots=64, slot_bytes=32,
+                       max_batch=8, read_batch=8)
+    calls = [
+        lambda: gf_matmul(generator_matrix(3, 2), shards),
+        lambda: encode_group([(1, 0, 0, b"x" * 40)], 1, 0),
+        lambda: encode_segment(store, seg0),
+        lambda: recover_image(cfg, store),
+        lambda: SegmentStore(str(tmp_path / "new"), erasure=True),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for the CPU, each runs
+    assert tuple(gf_matmul(generator_matrix(3, 2), shards,
+                           device="cpu").shape) == (2, 16)
+    assert len(encode_group([(1, 0, 0, b"x" * 40)], 1, 0, device="cpu")) == 5
+    assert len(encode_segment(store, seg0, device="cpu")) == 5
+    assert recover_image(cfg, store, device="cpu") is not None
+    SegmentStore(str(tmp_path / "new"), erasure=True, device="cpu").close()
+
+
+def test_gf_matmul_refuses_other_devices():
+    from ripplemq_tpu_torch.ops.rs import gf_matmul, generator_matrix
+
+    shards = torch.empty((3, 64), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no GF"):
+        gf_matmul(generator_matrix(3, 2), shards)
+    with pytest.raises(ValueError, match="no GF"):
+        gf_matmul(generator_matrix(3, 2), torch.zeros((3, 64), dtype=torch.uint8),
+                  device="meta")

@@ -22,7 +22,10 @@ PORT_TEST_MODULES = (
     "test_torch_append",
     "test_torch_engine",
     "test_torch_port_hygiene",
+    "test_torch_rs",
     "test_torch_step",
+    "test_torch_storage",
+    "test_torch_stripes",
 )
 
 
