@@ -14,12 +14,18 @@ phase that fails raises, and the script exits nonzero with no result.
 3. the append kernel against its plain PyTorch version at full width —
    the bench's headline engine shape (1024 partitions x 5 replicas,
    slots 12352, B 256, SB 128: an 8.26 GB ring log) — legacy and packed,
-   A = 64 and A = 1024 active entries, both from one cloned random log,
-   the whole log compared with torch.equal; then the GF(2^8) kernel
-   against its plain version (torch.equal) at a 64 MiB segment's shard
-   length with the encode matrix and all 10 reconstruct inverses, at
-   small odd and aligned widths, a misaligned start, a 16x16 matrix, and
-   N = 0 (no launch);
+   A = 64 and A = 1024 active entries, every base in the ring's last B
+   rows (windows clipped at the ring end), and 64 entries that no
+   replica writes, all from one cloned random log, the whole log
+   compared with torch.equal; then small configurations that reach the
+   kernel's register path (SB = 25; logs and entries at 1, 3 and 8-byte
+   offsets; bases from -B) and its bulk path with SB % 16 != 0
+   (SB = 24); then the GF(2^8) kernel against its plain version
+   (torch.equal) at a 64 MiB segment's shard length with the encode
+   matrix and all 10 reconstruct inverses, every pair of input and output
+   row offsets in {0, 1, 7, 15} bytes at widths 1, 15, 16, 17, 33, 4095,
+   4097 (and the full width for the encode), small odd and aligned
+   widths, a 16x16 matrix, and N = 0 (no launch);
 4. agreement on a small input: the engine on the GPU (kernel) and on the
    CPU (plain version) replay one scenario to equal state;
 5. the engine's main path, once per binding (legacy; fused_control +
@@ -43,17 +49,21 @@ phase that fails raises, and the script exits nonzero with no result.
    stream; every two-loss pattern of the widest group; one group's
    frames equal to the CPU encoder's;
    (launch counts are zeroed just before each path and read just after)
-8. times (CUDA events, after warm-up): ms per chained round, per kernel
-   launch, the plain versions' and `index_put_`'s, the bytes/s moved,
-   peak device memory, `encode_segment`'s steps for one 64 MiB segment
-   and `encode_group`'s rate at the bench's shape;
-9. a JSON line naming each ported kernel, then the card line again, then
-   the result line `{"ok": true, "device": {...}}`.
+8. times: each kernel's device time alone (the profiler's events by
+   kernel name) and through its wrapper (CUDA events, after warm-up),
+   inputs rotated over 3 buffers so that they come from HBM; ms per
+   chained round, the plain versions', `index_put_`'s and a `copy_` of
+   the append's byte count, peak device memory, `encode_segment`'s steps
+   for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
+9. a JSON line naming each ported kernel (gf_matmul's launches split by
+   consumer and by path), then the card line again, then the result line
+   `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import hashlib
 import itertools
@@ -141,23 +151,30 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
 # ------------------------------------------------ phase 3: kernel vs plain
 
 
-def random_case(g, cfg, A, *, to_ring_end, write_p=0.7):
+def random_case(g, cfg, A, *, to_ring_end, write_p=0.7, ring_end_only=False,
+                unwritten=0, base_lo=0):
     """Seeded device inputs for one append: entries, slot ids (distinct,
-    with -1 pads), aligned bases, do_write, extents in 0..B."""
+    with -1 pads), aligned bases, do_write, extents in 0..B.
+    `ring_end_only` puts every base in the last B rows of the ring (each
+    window clipped at its end); `unwritten` active entries get no writing
+    replica; `base_lo` < 0 lets bases start before row 0."""
     dev = DEV
     R, P, B, SB = cfg.replicas, cfg.partitions, cfg.max_batch, cfg.slot_bytes
     SP = cfg.slots + B
     entries = torch.empty((A, B, SB), dtype=torch.uint8, device=dev).random_(
         generator=g)
-    n_active = A - A // 8
+    n_active = min(A - A // 8, P)
     ids = torch.full((A,), -1, dtype=torch.int32, device=dev)
     where = torch.randperm(A, generator=g, device=dev)[:n_active]
     ids[where] = torch.randperm(P, generator=g, device=dev)[:n_active].to(
         torch.int32)
-    hi = SP // 8 if to_ring_end else (SP - B) // 8 + 1
-    base = (torch.randint(0, hi, (P,), generator=g, device=dev) * 8).to(
+    lo = (SP - B) // 8 if ring_end_only else base_lo // 8
+    hi = SP // 8 if to_ring_end or ring_end_only else (SP - B) // 8 + 1
+    base = (torch.randint(lo, hi, (P,), generator=g, device=dev) * 8).to(
         torch.int32)
     do_write = torch.rand((R, P), generator=g, device=dev) < write_p
+    if unwritten:
+        do_write[:, ids[where[:unwritten]].long()] = False
     extents = torch.randint(0, B + 1, (P,), generator=g, device=dev).to(
         torch.int32)
     return entries, ids, base, do_write, extents
@@ -171,6 +188,53 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return worst
 
 
+def _append_case(ops, log_k, log_p, entries, ids, base, do_write, ext, label,
+                 errs, name, fresh):
+    """One append through the kernel and the plain version, the whole logs
+    compared; `fresh` = the log pair is new to this case."""
+    ops.append_rows_active(log_k, entries, ids, base, do_write, extents=ext)
+    ops.append_rows_active_plain(log_p, entries, ids, base, do_write, ext)
+    torch.cuda.synchronize()
+    rows = int(ops._plain_writes(log_p, entries, ids, base, do_write,
+                                 ext)[0].numel())
+    equal = torch.equal(log_k, log_p)
+    err = 0 if equal else max_abs_err(log_k, log_p)
+    errs[name] = max(errs[name], err)
+    print(f"kernel-vs-plain: {name} {label}: rows written={rows} whole "
+          f"{log_k.numel()} B {'(fresh) ' if fresh else ''}log equal={equal} "
+          f"max_abs_err={err}", flush=True)
+    if not equal or rows == 0:
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             f"version (or wrote nothing)")
+
+
+def _offset_view(shape, offset, g):
+    """A random uint8 tensor of `shape` that starts `offset` bytes into
+    its buffer (contiguous, misaligned when offset % 16 != 0)."""
+    n = int(np.prod(shape))
+    buf = torch.empty(n + 64, dtype=torch.uint8, device=DEV).random_(
+        generator=g)
+    return buf[offset:offset + n].view(shape)
+
+
+# The shape fields `random_case` reads, for configurations an
+# EngineConfig would refuse (SB = 25 is no multiple of anything).
+_Shape = collections.namedtuple(
+    "_Shape", "replicas partitions slots slot_bytes max_batch")
+
+# Small configurations that reach the kernel's other paths: SB = 24 keeps
+# 16-byte-aligned windows (bulk copies with SB % 16 != 0); SB = 25 and the
+# offset views take the register path (16-byte lanes between a misaligned
+# head and tail when source and destination agree mod 16, bytes when not).
+SMALL_APPEND = [  # (label, R, P, S, SB, B, A, log offset, entries offset)
+    ("SB=24", 3, 64, 128, 24, 32, 48, 0, 0),
+    ("SB=25", 3, 64, 128, 25, 32, 48, 0, 0),
+    ("log and entries +8 B", 5, 64, 512, 128, 256, 64, 8, 8),
+    ("entries +1 B", 5, 64, 512, 128, 256, 64, 0, 1),
+    ("log +3 B", 5, 64, 512, 128, 256, 64, 3, 0),
+]
+
+
 def kernel_vs_plain(ops, cfg, seed) -> dict:
     g = torch.Generator(device=DEV).manual_seed(seed)
     shape = (cfg.replicas, cfg.partitions, cfg.slots + cfg.max_batch,
@@ -179,36 +243,69 @@ def kernel_vs_plain(ops, cfg, seed) -> dict:
         generator=g)
     log_p = log_k.clone()
     errs = {k: 0 for k in KERNELS}
-    for A in (64, 1024):
+    cases = [(A, dict(to_ring_end=True), f"A={A}") for A in (64, 1024)] + [
+        (1024, dict(to_ring_end=True, ring_end_only=True),
+         "A=1024, every base in the ring's last B rows"),
+        (1024, dict(to_ring_end=True, unwritten=64),
+         "A=1024, 64 entries with do_write all 0")]
+    for A, kw, label in cases:
         for packed in (False, True):
-            entries, ids, base, do_write, ext = random_case(
-                g, cfg, A, to_ring_end=True)
-            ext = ext if packed else None
-            ops.append_rows_active(log_k, entries, ids, base, do_write,
-                                   extents=ext)
-            ops.append_rows_active_plain(log_p, entries, ids, base,
-                                         do_write, ext)
-            torch.cuda.synchronize()
-            rows = int(ops._plain_writes(log_p, entries, ids, base, do_write,
-                                         ext)[0].numel())
-            equal = torch.equal(log_k, log_p)
-            err = 0 if equal else max_abs_err(log_k, log_p)
+            entries, ids, base, do_write, ext = random_case(g, cfg, A, **kw)
             name = "append_active_packed" if packed else "append_active"
-            errs[name] = max(errs[name], err)
-            print(f"kernel-vs-plain: {name} A={A}: rows written={rows} "
-                  f"whole {log_k.numel()} B log equal={equal} "
-                  f"max_abs_err={err}", flush=True)
-            if not equal or rows == 0:
-                raise AssertionError(f"{name} A={A} disagrees with its plain "
-                                     f"version (or wrote nothing)")
+            _append_case(ops, log_k, log_p, entries, ids, base, do_write,
+                         ext if packed else None, label, errs, name, False)
     del log_k, log_p
     torch.cuda.empty_cache()
+    for label, R, P, S, SB, B, A, log_off, ent_off in SMALL_APPEND:
+        for packed in (False, True):
+            log_k = _offset_view((R, P, S + B, SB), log_off, g)
+            log_p = log_k.clone()
+            entries, ids, base, do_write, ext = random_case(
+                g, _Shape(R, P, S, SB, B), A, to_ring_end=True,
+                base_lo=-B, unwritten=2)
+            entries = _offset_view((A, B, SB), ent_off, g)
+            name = "append_active_packed" if packed else "append_active"
+            _append_case(ops, log_k, log_p, entries, ids, base, do_write,
+                         ext if packed else None,
+                         f"{label} (R={R} P={P} S={S} B={B} A={A}, bases "
+                         f"from -B)", errs, name, True)
     return errs
+
+
+def kernel_only_ms(fn, name: str, reps: int) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    `name`, over `reps` calls of `fn` (one launch each), by the
+    profiler's device events: only the kernel is in the window, not the
+    wrapper's host time nor the gaps between launches. Fails when the
+    profiler sees no such kernel, or not one per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in ev)
+    if count != reps:
+        raise AssertionError(f"the profiler saw {count} launches of a "
+                             f"'{name}' kernel in {reps} calls")
+    return sum(e.self_device_time_total for e in ev) / count / 1e3
+
+
+ROTATE = 3  # input buffers cycled by the timings: > 50 MB, past the L2
 
 
 def time_kernels(ops, cfg, seed, card) -> dict:
     """Per-launch times at the main path's widest round (A = 1024, every
-    replica writing), beside the plain version, index_put_ and the bound."""
+    replica writing): the kernel alone (profiler) and through the wrapper
+    (CUDA events), the entries rotated over 3 buffers (100 MB) so that
+    they come from HBM as in the main path's chained rounds; beside the
+    plain version, index_put_, one torch copy_ of the same byte count and
+    the bound."""
     g = torch.Generator(device=DEV).manual_seed(seed + 1)
     shape = (cfg.replicas, cfg.partitions, cfg.slots + cfg.max_batch,
              cfg.slot_bytes)
@@ -216,6 +313,8 @@ def time_kernels(ops, cfg, seed, card) -> dict:
     entries, ids, base, do_write, extents = random_case(
         g, cfg, 1024, to_ring_end=False, write_p=1.0)
     extents = extents.clamp_min(1)  # every main-path round carries >= 1 row
+    rot = [entries] + [torch.empty_like(entries).random_(generator=g)
+                       for _ in range(ROTATE - 1)]
     out = {}
     for name in KERNELS:
         ext = extents if name == "append_active_packed" else None
@@ -226,22 +325,37 @@ def time_kernels(ops, cfg, seed, card) -> dict:
         small = 4 * (ids.numel() + base.numel()) + do_write.numel() + (
             0 if ext is None else 4 * ext.numel())
         moved = written + read + small
-        ms = cuda_time_ms(lambda: ops.append_rows_active(
-            log, entries, ids, base, do_write, extents=ext), reps=50)
+        turn = itertools.count()
+
+        def launch():
+            ops.append_rows_active(log, rot[next(turn) % ROTATE], ids, base,
+                                   do_write, extents=ext)
+
+        kernel_ms = kernel_only_ms(launch, "append_active_kernel", reps=60)
+        wrapper_ms = cuda_time_ms(launch, reps=60)
         plain_ms = cuda_time_ms(lambda: ops.append_rows_active_plain(
             log, entries, ids, base, do_write, ext), reps=5)
         vals = entries[a_i, b_i]
         lib_ms = cuda_time_ms(
             lambda: log.index_put_((r_i, p_i, row_i), vals), reps=10)
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=DEV)
+        dst = torch.empty_like(src)
+        copy_ms = cuda_time_ms(lambda: dst.copy_(src), reps=60)
+        del src, dst, vals
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bytes=moved, written=written)
+        out[name] = dict(ms=kernel_ms, wrapper_ms=wrapper_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         copy_ms=copy_ms, bound_ms=bound_ms, bytes=moved,
+                         written=written)
         print(f"time: {name} A={entries.shape[0]} R={cfg.replicas} "
-              f"B={cfg.max_batch} SB={cfg.slot_bytes}: {ms:.4f} ms/launch, "
-              f"plain {plain_ms:.3f} ms, index_put_ {lib_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms ({moved} B at 3.35 TB/s), "
-              f"{written / ms / 1e6:.2f} GB/s written [{card}]", flush=True)
-    del log
+              f"B={cfg.max_batch} SB={cfg.slot_bytes}: kernel "
+              f"{kernel_ms:.4f} ms/launch ({100 * bound_ms / kernel_ms:.1f}% "
+              f"of bound), through the wrapper {wrapper_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, index_put_ {lib_ms:.3f} ms, copy_ of "
+              f"{moved // 2} B ({moved} B moved) {copy_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({moved} B at 3.35 TB/s) [{card}]",
+              flush=True)
+    del log, rot
     torch.cuda.empty_cache()
     return out
 
@@ -505,8 +619,13 @@ def profile_chain(binding, chained, rounds, card) -> None:
               f"device busy share not measured", flush=True)
         return
     n_kernels = sum(e.count for e in dev)
-    append_us = sum(e.self_device_time_total for e in dev
-                    if "append_active_kernel" in e.key)
+    append = [e for e in dev if "append_active_kernel" in e.key]
+    if sum(e.count for e in append) != rounds:
+        raise AssertionError(
+            f"profile: {binding}: {sum(e.count for e in append)} device "
+            f"events match append_active_kernel in {rounds} rounds; the "
+            f"kernel's name no longer matches what the profiler reports")
+    append_us = sum(e.self_device_time_total for e in append)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
     print(f"profile: {binding}: per round {wall_us / rounds:.1f} us wall, "
           f"{busy_us / rounds:.1f} us device-busy "
@@ -529,11 +648,16 @@ def rs_matrices():
     return rs_ops.generator_matrix(3, 2), inverses
 
 
+RS_WIDTHS = (1, 15, 16, 17, 33, 4095, 4097)
+RS_OFFSETS = (0, 1, 7, 15)
+
+
 def rs_kernel_vs_plain(seed) -> int:
     """The GF(2^8) kernel against its plain version, torch.equal: at a
     sealed 64 MiB segment's shard length with the encode matrix and all
-    10 inverses, then at small odd widths (byte path) and aligned ones
-    (16-byte path), a misaligned start, the largest tiled matrix, and
+    10 inverses; every pair of input and output row offsets in
+    {0, 1, 7, 15} bytes at ragged and small widths and at the full
+    width; small odd and aligned widths, the largest tiled matrix, and
     N = 0 (no launch)."""
     g = torch.Generator(device=DEV).manual_seed(seed + 3)
     rng = np.random.default_rng(seed + 3)
@@ -563,21 +687,48 @@ def rs_kernel_vs_plain(seed) -> int:
                 for row in rng.integers(0, 256, size=(16, 16)))
     small.append(("16x16 N=5000", big, rand(16, 5000)))
     worst = 0
+
+    def check(name, got, want):
+        nonlocal worst
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        err = 0 if equal else int((got.to(torch.int16)
+                                   - want.to(torch.int16)).abs().max())
+        worst = max(worst, err)
+        if not equal:
+            raise AssertionError(f"gf_matmul {name} disagrees with its "
+                                 f"plain version (max_abs_err {err})")
+
     for group, items in (("N=%d" % SHARD_N, cases), ("small", small)):
         for name, m, s in items:
-            got = rs_ops.gf_matmul(m, s)
-            want = rs_ops.gf_matmul_plain(m, s)
-            torch.cuda.synchronize()
-            equal = torch.equal(got, want)
-            err = 0 if equal else int((got.to(torch.int16)
-                                       - want.to(torch.int16)).abs().max())
-            worst = max(worst, err)
-            if not equal:
-                raise AssertionError(f"gf_matmul {name} disagrees with its "
-                                     f"plain version (max_abs_err {err})")
+            check(name, rs_ops.gf_matmul(m, s), rs_ops.gf_matmul_plain(m, s))
         print(f"kernel-vs-plain: gf_matmul {group}: {len(items)} cases "
               f"equal ({', '.join(name for name, _, _ in items[:3])}, ...) "
               f"max_abs_err=0", flush=True)
+
+    # Rows at every offset pair: inputs and outputs as views that start
+    # d_in and d_out bytes into their buffers (the wrapper's output is
+    # always aligned, so the kernel launch takes the view as `out`).
+    n_pairs = 0
+    paths = {"gf_matmul_vec16": 0, "gf_matmul_realign": 0}
+    for m in (enc, inverses[(1, 2, 3)], big):
+        for n in RS_WIDTHS + ((SHARD_N,) if m is enc else ()):
+            for d_in, d_out in itertools.product(RS_OFFSETS, repeat=2):
+                s = _offset_view((len(m[0]), n), d_in, g)
+                o = _offset_view((len(m), n), d_out, g)
+                before = dict(rs_ops.LAUNCHES)
+                rs_ops._launch(m, s, out=o)
+                for k in paths:
+                    paths[k] += rs_ops.LAUNCHES[k] - before[k]
+                check(f"{len(m)}x{len(m[0])} N={n} offsets in {d_in} out "
+                      f"{d_out}", o, rs_ops.gf_matmul_plain(m, s))
+                n_pairs += 1
+    print(f"kernel-vs-plain: gf_matmul offset pairs: {n_pairs} cases equal "
+          f"(2x3, 3x3, 16x16; N in {RS_WIDTHS}, and N={SHARD_N} for 2x3; "
+          f"input and output offsets in {RS_OFFSETS} B), launches by path "
+          f"{paths}, max_abs_err=0", flush=True)
+    if not all(paths.values()):
+        raise AssertionError(f"the offset pairs missed a path: {paths}")
     before = rs_ops.LAUNCHES["gf_matmul"]
     empty = rs_ops.gf_matmul(enc, rand(3, 0))
     if tuple(empty.shape) != (2, 0) or rs_ops.LAUNCHES["gf_matmul"] != before:
@@ -589,29 +740,48 @@ def rs_kernel_vs_plain(seed) -> int:
 
 
 def time_rs(seed, card) -> dict:
-    """ms per launch at a 64 MiB segment's shard length (byte path, as the
-    segment encoder runs it) and at the next 16-byte multiple (the
-    vector path the stripe codec's padded widths take), beside the plain
-    version and the byte bound. No single PyTorch call computes a GF(2^8)
-    product, so there is no library time."""
+    """ms per launch at a 64 MiB segment's shard length, N = 22,369,622
+    (realigned path: the rows start misaligned, as the segment encoder
+    runs it) and at the next 16-byte multiple (the aligned path the
+    stripe codec's padded widths take), encode and 3x3 reconstruct: the
+    kernel alone (profiler) and through the wrapper (CUDA events), the
+    inputs rotated over 3 buffers (>= 200 MB) so that they come from HBM;
+    beside the plain version and the byte bound. No single PyTorch call
+    computes a GF(2^8) product, so there is no library time."""
     g = torch.Generator(device=DEV).manual_seed(seed + 4)
     enc, inverses = rs_matrices()
+    inv = inverses[(1, 2, 3)]
+    aligned_n = -(-SHARD_N // 16) * 16
     out = {}
     for label, m, n in (("encode", enc, SHARD_N),
-                        ("reconstruct", inverses[(1, 2, 3)], SHARD_N),
-                        ("encode_aligned", enc, -(-SHARD_N // 16) * 16)):
-        s = torch.empty((len(m[0]), n), dtype=torch.uint8,
-                        device=DEV).random_(generator=g)
-        ms = cuda_time_ms(lambda: rs_ops.gf_matmul(m, s), reps=50)
-        plain_ms = cuda_time_ms(lambda: rs_ops.gf_matmul_plain(m, s), reps=5)
+                        ("reconstruct", inv, SHARD_N),
+                        ("encode_aligned", enc, aligned_n),
+                        ("reconstruct_aligned", inv, aligned_n)):
+        rot = [torch.empty((len(m[0]), n), dtype=torch.uint8,
+                           device=DEV).random_(generator=g)
+               for _ in range(ROTATE)]
+        turn = itertools.count()
+
+        def launch():
+            rs_ops.gf_matmul(m, rot[next(turn) % ROTATE])
+
+        path = "vec16" if n % 16 == 0 else "realign"
+        kernel_ms = kernel_only_ms(launch, f"gf_matmul_{path}_kernel",
+                                   reps=60)
+        wrapper_ms = cuda_time_ms(launch, reps=60)
+        plain_ms = cuda_time_ms(lambda: rs_ops.gf_matmul_plain(m, rot[0]),
+                                reps=5)
         moved = (len(m) + len(m[0])) * n
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
-        print(f"time: gf_matmul {label} {len(m)}x{len(m[0])} N={n}: "
-              f"{ms:.4f} ms/launch, plain {plain_ms:.3f} ms, library: none, "
-              f"bound {bound_ms:.4f} ms ({moved} B at 3.35 TB/s), "
-              f"{moved / ms / 1e6:.1f} GB/s moved [{card}]", flush=True)
-        del s
+        out[label] = dict(ms=kernel_ms, wrapper_ms=wrapper_ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms, path=path)
+        print(f"time: gf_matmul {label} {len(m)}x{len(m[0])} N={n} ({path} "
+              f"path): kernel {kernel_ms:.4f} ms/launch "
+              f"({100 * bound_ms / kernel_ms:.1f}% of bound), through the "
+              f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"library: none, bound {bound_ms:.4f} ms ({moved} B at "
+              f"3.35 TB/s) [{card}]", flush=True)
+        del rot
     torch.cuda.empty_cache()
     return out
 
@@ -685,7 +855,8 @@ def storage_path(seed, card, workdir):
     native = store.is_native  # close() drops the native handle
     store.close()
     torch.cuda.synchronize()
-    protect_launches = rs_ops.LAUNCHES["gf_matmul"]
+    protect = dict(rs_ops.LAUNCHES)
+    protect_launches = protect["gf_matmul"]
     drive_s = time.perf_counter() - t0
     nbytes = sum(len(r[3]) for recs in rounds for r in recs)
     sealed = erasure._segment_names(store_dir)[:-1]
@@ -704,7 +875,7 @@ def storage_path(seed, card, workdir):
           f"{SEG_BYTES >> 20} MiB segments + 1 active ({'native' if native else 'Python'}"
           f" store), each sealed segment with 5 CRC-valid shards, "
           f"erasure_errors [], gf_matmul launches while protecting: "
-          f"{protect_launches}, {drive_s:.2f} s [{card}]", flush=True)
+          f"{protect}, {drive_s:.2f} s [{card}]", flush=True)
 
     eng = {leaf: getattr(state, leaf)[0].cpu().numpy()
            for leaf in ("log_end", "commit", "last_term", "offsets")}
@@ -751,7 +922,7 @@ def storage_path(seed, card, workdir):
         recover_s = time.perf_counter() - t0
     finally:
         dataplane.repair_store = real_repair
-    recover_launches = rs_ops.LAUNCHES["gf_matmul"]
+    recover = dict(rs_ops.LAUNCHES)
     if repaired != [[a, b]]:
         raise AssertionError(f"repair_store repaired {repaired}, want {[a, b]}")
     for n in (a, b, c):
@@ -774,11 +945,11 @@ def storage_path(seed, card, workdir):
           f"lost; c: parity 3,4 lost, re-encoded), every sealed set back at "
           f"5 valid shards, image == engine replica 0 on log_end, commit, "
           f"last_term, offsets and {int(rows.sum())} committed rows; "
-          f"gf_matmul launches while recovering: {recover_launches}, "
+          f"gf_matmul launches while recovering: {recover}, "
           f"{recover_s:.2f} s ({repair_s[0]:.2f} s in repair_store, "
           f"{recover_s - repair_s[0]:.2f} s scanning and replaying) "
           f"[{card}]", flush=True)
-    return rounds, {"protect": protect_launches, "recover": recover_launches}
+    return rounds, {"protect": protect, "recover": recover}
 
 
 # ------------------------------------------------ the stripe path
@@ -801,7 +972,7 @@ def stripe_path(rounds, card) -> dict:
         for i, f in enumerate(frames):
             stores[held[i]].append((REC_STRIPE, i, k, f))
     encode_s = time.perf_counter() - t0
-    encode_launches = rs_ops.LAUNCHES["gf_matmul"]
+    encode_launches = dict(rs_ops.LAUNCHES)
 
     def fetcher(records):
         def fetch(after):
@@ -814,12 +985,12 @@ def stripe_path(rounds, card) -> dict:
     got = rebuild_records(iter(stores[2]), [("member3", fetcher(stores[3])),
                                             ("member4", fetcher(stores[4]))])
     rebuild_s = time.perf_counter() - t0
-    rebuild_launches = rs_ops.LAUNCHES["gf_matmul"]
+    rebuild_launches = dict(rs_ops.LAUNCHES)
     want = [r for recs in rounds for r in recs]
     if got != want:
         raise AssertionError("the rebuilt record stream differs from the "
                              "controller's")
-    if rebuild_launches != len(rounds):
+    if rebuild_launches["gf_matmul"] != len(rounds):
         raise AssertionError(f"{rebuild_launches} reconstruct launches for "
                              f"{len(rounds)} groups")
     nbytes = sum(len(r[3]) for r in want)
@@ -971,22 +1142,26 @@ def main() -> int:
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=launches[name], max_abs_err=errs[name],
-                    ms=times[name]["ms"], plain_ms=times[name]["plain_ms"],
+                    ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
+                    plain_ms=times[name]["plain_ms"],
                     bound_ms=times[name]["bound_ms"], bound_by="bytes",
                     library_ms=times[name]["library_ms"],
+                    copy_ms=times[name]["copy_ms"],
                     matched_plain=errs[name] == 0)
                for name, (_, replaces) in KERNELS.items()]
     enc = rs_times["encode"]
+    by_path = {"storage": rs_storage, "stripes": rs_stripes}
     kernels.append(dict(
         name="gf_matmul", route="cuda", source=RS_SOURCE,
         replaces=RS_REPLACES,
-        launches=sum(rs_storage.values()) + sum(rs_stripes.values()),
-        launches_by_path={"storage": rs_storage, "stripes": rs_stripes},
-        max_abs_err=errs["gf_matmul"], ms=enc["ms"], plain_ms=enc["plain_ms"],
+        launches=sum(c["gf_matmul"] for p in by_path.values()
+                     for c in p.values()),
+        launches_by_path=by_path,
+        max_abs_err=errs["gf_matmul"], ms=enc["ms"],
+        wrapper_ms=enc["wrapper_ms"], plain_ms=enc["plain_ms"],
         bound_ms=enc["bound_ms"], bound_by="bytes", library_ms=None,
-        shape=f"2x3 encode, N={SHARD_N}",
-        reconstruct=rs_times["reconstruct"],
-        encode_aligned=rs_times["encode_aligned"],
+        shape=f"2x3 encode, N={SHARD_N} (realigned path)",
+        **{k: v for k, v in rs_times.items() if k != "encode"},
         matched_plain=errs["gf_matmul"] == 0))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

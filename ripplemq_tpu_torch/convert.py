@@ -24,6 +24,7 @@ from ripplemq_tpu_torch.core.state import (
     StepInput,
     fuse_state,
 )
+from ripplemq_tpu_torch.ops.rs import default_device
 
 
 def _fields(obj: Any) -> Mapping[str, Any]:
@@ -75,10 +76,12 @@ def state_to_numpy(state) -> dict[str, np.ndarray]:
             for name, leaf in state._asdict().items()}
 
 
-def image_from_numpy(image, device="cpu") -> ReplicaState:
+def image_from_numpy(image, device=None) -> ReplicaState:
     """A single-replica image ([P, ...] leaves by name, e.g. the
     reference's `recover_image` result) → the port's ReplicaState of
-    tensors on `device`."""
+    tensors on `device`, CUDA when none is given (raises with no GPU
+    unless `device="cpu"`)."""
+    device = default_device(device)
     f = _fields(image)
     return ReplicaState(
         log_data=_tensor(f["log_data"], torch.uint8, device),

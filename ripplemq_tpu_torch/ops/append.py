@@ -6,8 +6,9 @@ that acks it, the partition's [B, SB] block of packed rows at the
 physical ring position `base[p]`, in place.
 
 - On a CUDA tensor the wrapper launches the hand-written kernel in
-  `csrc/append.cu` (built by `ops.cuda_build`) on the current stream;
-  a build or launch failure raises.
+  `csrc/append.cu` (built by `ops.cuda_build`) on the current stream,
+  with no torch op around it (the kernel computes packed classes from
+  the raw extents); a build or launch failure raises.
 - On a CPU tensor it runs `append_rows_active_plain`, the plain PyTorch
   version ported from the reference's `append_rows_active_xla`. Nothing
   else takes the plain path; the chip smoke run compares the two.
@@ -113,6 +114,22 @@ def append_rows_active_plain(log_data, entries, slot_ids, base, do_write,
 # ------------------------------------------------------------ the kernel
 
 
+_STAGE_MAX = 32768  # bytes per stage of the kernel's shared ring
+_STAGES = 2         # stages of the ring (csrc/append.cu kStages)
+_MAX_REPLICAS = 64  # csrc/append.cu kMaxReplicas
+
+
+def _chunk_bytes(B: int, SB: int) -> int:
+    """Bytes per stage of the kernel's shared-memory ring: a window of
+    B * SB bytes rounded up to 16 (bulk copies move multiples of 16),
+    capped at `_STAGE_MAX`; a longer window streams through the ring
+    chunk by chunk. At the headline shape (B * SB = 32 KiB) the window
+    is one chunk and a CTA holds 64 KiB of shared memory; on the H100
+    that beat rings of 16-32 KiB a CTA, although only 3 CTAs then fit an
+    SM."""
+    return min(_STAGE_MAX, -(-(B * SB) // 16) * 16)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ripplemq_append_active
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -152,27 +169,34 @@ def _check(log_data, entries, slot_ids, base, do_write, extents) -> None:
 
 
 def _launch(log_data, entries, slot_ids, base, do_write, extents) -> None:
+    """One kernel launch. The raw extents go to the kernel, which computes
+    each partition's class itself: no torch ops run around the launch."""
     for t, name in ((log_data, "log_data"), (entries, "entries")):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the kernel")
-    lib = build()
     R, P, SP, SB = log_data.shape
     A, B = entries.shape[0], entries.shape[1]
+    if R > _MAX_REPLICAS:
+        raise ValueError(f"the append kernel takes at most {_MAX_REPLICAS} "
+                         f"replicas, got {R}")
+    if A == 0 or B == 0:
+        return
+    lib = build()
     slot_ids = slot_ids.contiguous()
     base = base.contiguous()
     do_write = do_write.contiguous()
-    eb = None if extents is None else _extent_blocks(extents, B).contiguous()
-    vec16 = int(SB % 16 == 0 and log_data.data_ptr() % 16 == 0
-                and entries.data_ptr() % 16 == 0)
+    extents = None if extents is None else extents.contiguous()
     stream = torch.cuda.current_stream(log_data.device).cuda_stream
     err = lib.ripplemq_append_active(
         log_data.data_ptr(), entries.data_ptr(), slot_ids.data_ptr(),
         base.data_ptr(), do_write.data_ptr(),
-        None if eb is None else eb.data_ptr(),
-        R, P, SP, SB, A, B, vec16, log_data.device.index, stream)
+        None if extents is None else extents.data_ptr(),
+        R, P, SP, SB, A, B, _chunk_bytes(B, SB), log_data.device.index,
+        stream)
     if err != 0:
         raise RuntimeError(f"append kernel launch failed: cudaError {err}")
-    LAUNCHES["append_active" if eb is None else "append_active_packed"] += 1
+    LAUNCHES["append_active" if extents is None
+             else "append_active_packed"] += 1
 
 
 def append_rows_active(log_data, entries, slot_ids, base, do_write, *,

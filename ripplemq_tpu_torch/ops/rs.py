@@ -34,8 +34,9 @@ from ripplemq_tpu_torch.ops import cuda_build
 _POLY = 0x11D  # x^8 + x^4 + x^3 + x^2 + 1
 
 # Launches of the CUDA kernel: incremented where the wrapper launches it
-# and nowhere else (the plain path does not count).
-LAUNCHES = {"gf_matmul": 0}
+# and nowhere else (the plain path does not count). "gf_matmul" counts
+# every launch; the other two split them by path (`_launch_shape`).
+LAUNCHES = {"gf_matmul": 0, "gf_matmul_vec16": 0, "gf_matmul_realign": 0}
 
 
 def reset_launches() -> None:
@@ -179,12 +180,15 @@ def gf_matmul_plain(coeffs, shards: torch.Tensor) -> torch.Tensor:
 
 _TILE = 4      # rows and columns of C per kernel launch (csrc/rs.cu kTile)
 _MAX_DIM = 16  # largest M and K the wrapper tiles
+_COLS = 4096   # columns a block computes (csrc/rs.cu kCols)
+_STEP = _COLS - 16  # columns a realigned block owns (csrc/rs.cu kStep)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ripplemq_gf_matmul
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp, ci, ci,
+                   ctypes.c_longlong, ci, vp]
     fn.restype = ci
 
 
@@ -220,23 +224,48 @@ def _plan(coeffs) -> tuple:
     return tuple(plan)
 
 
-def _launch(coeffs, shards: torch.Tensor) -> torch.Tensor:
-    lib = build()
+def _launch_shape(n: int, in_ptr: int, out_ptr: int) -> tuple[bool, int]:
+    """(aligned path?, blocks) of one launch over rows of n bytes.
+
+    The aligned path needs every row on a 16-byte boundary: n % 16 == 0
+    and both base pointers aligned. Its blocks cover 4096 columns each.
+    Every other case (misaligned rows, ragged widths, n < 16) takes the
+    realigned path, whose blocks own 4080 columns each: block b owns
+    columns [b*4080 - e, (b+1)*4080 - e) of an output row misaligned by
+    e = address % 16, so that all of its stores but the row's head and
+    tail are aligned 16-byte vectors; ceil((n + 15) / 4080) blocks cover
+    every e in 0..15."""
+    if n % 16 == 0 and in_ptr % 16 == 0 and out_ptr % 16 == 0:
+        return True, -(-n // _COLS)
+    return False, -(-(n + 15) // _STEP)
+
+
+def _launch(coeffs, shards: torch.Tensor, out=None) -> torch.Tensor:
+    """Launch the kernel tile by tile into `out` (a fresh [M, N] tensor
+    unless given: a contiguous uint8 view on the same device, at any
+    address)."""
     N = shards.shape[1]
-    out = torch.empty((len(coeffs), N), dtype=torch.uint8,
-                      device=shards.device)
-    vec16 = int(N % 16 == 0 and shards.data_ptr() % 16 == 0
-                and out.data_ptr() % 16 == 0)
+    if out is None:
+        out = torch.empty((len(coeffs), N), dtype=torch.uint8,
+                          device=shards.device)
+    elif (out.dtype != torch.uint8 or tuple(out.shape) != (len(coeffs), N)
+          or out.device != shards.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous uint8 [{len(coeffs)}, "
+                         f"{N}] tensor on {shards.device}")
+    lib = build()
+    vec16, blocks = _launch_shape(N, shards.data_ptr(), out.data_ptr())
+    path = "gf_matmul_vec16" if vec16 else "gf_matmul_realign"
     stream = torch.cuda.current_stream(shards.device).cuda_stream
     for i0, j0, m, k, tile in _plan(coeffs):
         err = lib.ripplemq_gf_matmul(
             shards.data_ptr() + j0 * N, out.data_ptr() + i0 * N, N, m, k,
-            tile.ctypes.data, int(j0 > 0), vec16, shards.device.index,
-            stream)
+            tile.ctypes.data, int(j0 > 0), int(vec16), blocks,
+            shards.device.index, stream)
         if err != 0:
             raise RuntimeError(
                 f"GF(2^8) matmul kernel launch failed: cudaError {err}")
         LAUNCHES["gf_matmul"] += 1
+        LAUNCHES[path] += 1
     return out
 
 

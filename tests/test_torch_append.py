@@ -132,13 +132,20 @@ def test_plain_path_does_not_count_kernel_launches():
 
 
 @pytest.mark.parametrize("bad", ["log_dtype", "ids_dtype", "do_write_shape",
-                                 "entries_width"])
+                                 "entries_width", "extents_dtype",
+                                 "extents_shape"])
 def test_wrapper_validates_inputs(bad):
     rng = np.random.default_rng(6)
-    log, entries, ids, base, do_write, _ = _case(rng)
+    log, entries, ids, base, do_write, extents = _case(rng)
     t = {k: torch.from_numpy(v) for k, v in dict(
-        log=log, entries=entries, ids=ids, base=base, do_write=do_write).items()}
-    if bad == "log_dtype":
+        log=log, entries=entries, ids=ids, base=base, do_write=do_write,
+        extents=extents).items()}
+    ext = None
+    if bad == "extents_dtype":
+        ext = t["extents"].to(torch.int64)
+    elif bad == "extents_shape":
+        ext = t["extents"][:-1]
+    elif bad == "log_dtype":
         t["log"] = t["log"].to(torch.int32)
     elif bad == "ids_dtype":
         t["ids"] = t["ids"].to(torch.int64)
@@ -148,4 +155,104 @@ def test_wrapper_validates_inputs(bad):
         t["entries"] = t["entries"][..., :-8]
     with pytest.raises(ValueError):
         port.append_rows_active(t["log"], t["entries"], t["ids"], t["base"],
-                                t["do_write"])
+                                t["do_write"], extents=ext)
+
+
+# ------------------------------------------------- the kernel's arithmetic
+# The CUDA kernel cannot run here; these mirror, line for line, what
+# csrc/append.cu computes per CTA, and hold it against the plain version.
+
+
+def _kernel_rows(ext: int, B: int) -> int:
+    """csrc/append.cu `extent_class`: raw extent -> rows written."""
+    ba = B // ALIGN
+    ext = min(max(ext, 0), B)
+    eb = min(max((ext + ALIGN - 1) // ALIGN, 1), ba)
+    c = 1
+    while c < eb:
+        c <<= 1
+    return ALIGN * (ba if c >= ba else c)
+
+
+def _kernel_model(log, entries, ids, base, do_write, extents, chunk):
+    """The kernel's copy in numpy: per active entry the window clipped to
+    [0, SP), streamed chunk by chunk as flat bytes to every writing
+    replica, exactly as the bulk and register paths move it."""
+    log = log.copy()
+    R, P, SP, SB = log.shape
+    B = entries.shape[1]
+    flat_log = log.reshape(-1)
+    flat_ent = entries.reshape(-1)
+    for a, p in enumerate(ids):
+        if p < 0:
+            continue
+        p = min(int(p), P - 1)
+        writers = [r for r in range(R) if do_write[r, p]]
+        if not writers:
+            continue
+        rows = B if extents is None else _kernel_rows(int(extents[p]), B)
+        b0 = int(base[p])
+        lo, hi = max(0, -b0), min(rows, SP - b0)
+        if hi <= lo:
+            continue
+        nbytes = (hi - lo) * SB
+        src = (a * B + lo) * SB
+        dst0 = (p * SP + b0 + lo) * SB
+        for off in range(0, nbytes, chunk):
+            size = min(chunk, nbytes - off)
+            for r in writers:
+                d = r * P * SP * SB + dst0 + off
+                flat_log[d:d + size] = flat_ent[src + off:src + off + size]
+    return log
+
+
+@pytest.mark.parametrize("B", [8, 16, 24, 64, 256])
+def test_kernel_class_from_raw_extents_matches_plain_rows(B):
+    """The packed class the kernel computes from raw int32 extents (the
+    wrapper no longer runs `_extent_blocks` before the launch) equals the
+    plain version's row limit, and the reference's, for every extent."""
+    ext = np.arange(-9, B + 10, dtype=np.int32)
+    BA = B // ALIGN
+    plain = port._class_roundup(
+        port._extent_blocks(torch.from_numpy(ext), B).clamp(1, BA), BA) * ALIGN
+    ref_rows = np.asarray(ref._class_roundup(
+        jnp.clip(ref._extent_blocks(jnp.asarray(ext), B), 1, BA), BA)) * ALIGN
+    got = [_kernel_rows(int(e), B) for e in ext]
+    assert got == plain.tolist() == ref_rows.tolist()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["legacy", "packed"])
+@pytest.mark.parametrize("seed,shape,kw", [
+    (0, dict(), dict()),
+    (1, dict(SB=24, B=24), dict(overflow=True)),
+    (2, dict(SB=25, B=16), dict(overflow=True, clipped_id=True)),
+    (3, dict(R=5, P=8, A=8, SB=128, B=64), dict(overflow=True)),
+])
+@pytest.mark.parametrize("stage", [16, 48, 32768])
+def test_kernel_window_and_chunk_plan_match_plain(seed, shape, kw, packed,
+                                                  stage, monkeypatch):
+    """The kernel's window clipping and the wrapper's chunk plan (at the
+    real cap and at caps that split windows into many chunks, some
+    ragged) write exactly the plain version's rows, bases before row 0
+    and past the ring end included."""
+    monkeypatch.setattr(port, "_STAGE_MAX", stage)
+    rng = np.random.default_rng(seed)
+    log, entries, ids, base, do_write, extents = _case(rng, **shape, **kw)
+    base = base - ALIGN * rng.integers(0, 3, size=base.shape).astype(np.int32)
+    ext = extents if packed else None
+    B, SB = entries.shape[1], entries.shape[2]
+    chunk = port._chunk_bytes(B, SB)
+    assert chunk % 16 == 0 and 0 < chunk <= max(stage, 16)
+    got = _kernel_model(log, entries, ids, base, do_write, ext, chunk)
+    want = _port_active(log, entries, ids, base, do_write, ext)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_chunk_plan_fits_the_card():
+    """A CTA's ring (`_STAGES` chunks) fits the 227 KB of shared memory a
+    block may use; the headline window (B 256 x SB 128) is one chunk."""
+    for B, SB in [(256, 128), (8, 9), (1024, 1024), (32, 24)]:
+        chunk = port._chunk_bytes(B, SB)
+        assert chunk % 16 == 0 and chunk >= min(B * SB, port._STAGE_MAX)
+        assert port._STAGES * chunk <= 232448
+    assert port._chunk_bytes(256, 128) == 256 * 128

@@ -9,8 +9,9 @@
 - the engine and the erasure-coding entry points run on CUDA unless
   asked otherwise: with no device given and no GPU present,
   `make_local_fns`, `gf_matmul`, `encode_group`, `encode_segment`,
-  `SegmentStore(erasure=True)` and `recover_image` raise instead of
-  falling back; a tensor on neither the CPU nor a GPU gets no path.
+  `SegmentStore(erasure=True)`, `recover_image` and
+  `convert.image_from_numpy` raise instead of falling back; a tensor on
+  neither the CPU nor a GPU gets no path.
 """
 
 from __future__ import annotations
@@ -162,3 +163,19 @@ def test_gf_matmul_refuses_other_devices():
     with pytest.raises(ValueError, match="no GF"):
         gf_matmul(generator_matrix(3, 2), torch.zeros((3, 64), dtype=torch.uint8),
                   device="meta")
+
+
+def test_image_from_numpy_without_device_raises_when_no_gpu(no_gpu):
+    import numpy as np
+
+    from ripplemq_tpu_torch import convert
+    from ripplemq_tpu_torch.core.state import CTRL_FIELDS
+
+    image = {name: np.zeros(4, np.int32) for name in CTRL_FIELDS}
+    image["log_data"] = np.zeros((4, 16, 32), np.uint8)
+    image["offsets"] = np.zeros((4, 8), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.image_from_numpy(image)
+    got = convert.image_from_numpy(image, device="cpu")
+    assert got.log_data.device.type == "cpu"
+    assert got.log_data.dtype == torch.uint8

@@ -161,3 +161,70 @@ def test_zero_width_returns_empty_without_launch():
                          np.zeros((3, 0), np.uint8), device="cpu")
     assert tuple(out.shape) == (2, 0) and out.dtype == torch.uint8
     assert port.LAUNCHES["gf_matmul"] == before
+
+
+# --------------------------------------------- misaligned rows, ragged widths
+# The realigned kernel path serves every row that is not 16-byte aligned
+# with a width of a multiple of 16; the plain version must take any such
+# row as it is, and the wrapper's launch shape must cover it.
+
+RAGGED = [1, 15, 16, 17, 33, 4095, 4097]
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("offset", range(16))
+def test_plain_on_offset_views_equals_table_ref(offset, n):
+    rng = np.random.default_rng(100 * offset + n)
+    coeffs = MATRICES["encode_2x3"] if n % 2 else MATRICES["zeros_3x3"]
+    k = len(coeffs[0])
+    buf = torch.from_numpy(rng.integers(0, 256, size=k * n + 16,
+                                        dtype=np.uint8))
+    view = buf[offset:offset + k * n].view(k, n)
+    got = port.gf_matmul(coeffs, view)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ref.gf_matmul_ref(coeffs, view.numpy()))
+
+
+@pytest.mark.parametrize("n", RAGGED + [4080, 4096, 22_369_622, 22_369_632])
+def test_launch_shape_path_rule_and_cover(n):
+    """The aligned path only for aligned rows (both base pointers 16-byte
+    aligned and n % 16 == 0); every other case the realigned path. Its
+    blocks own columns [b*4080 - e, (b+1)*4080 - e) of an output row
+    misaligned by e, as 255 vectors each at columns 16k - e: for every e
+    they cover the row exactly once, and the only partial vectors (byte
+    stores) are the row's first and last, at most 15 bytes each."""
+    for in_off, out_off in [(0, 0), (1, 0), (0, 7), (15, 15), (16, 32)]:
+        vec16, blocks = port._launch_shape(n, 4096 + in_off, 8192 + out_off)
+        aligned = n % 16 == 0 and in_off % 16 == 0 and out_off % 16 == 0
+        assert vec16 == aligned
+        if vec16:
+            assert blocks * port._COLS >= n > (blocks - 1) * port._COLS
+            continue
+        assert port._STEP % 16 == 0
+        per_block = port._STEP // 16
+        b = np.repeat(np.arange(blocks, dtype=np.int64), per_block)
+        v = np.tile(np.arange(per_block, dtype=np.int64), blocks)
+        for e in range(16):
+            c = b * port._STEP - e + 16 * v           # vector start columns
+            hit = (c < n) & (c + 16 > 0)
+            bytes_ = np.minimum(n, c[hit] + 16) - np.maximum(0, c[hit])
+            assert bytes_.sum() == n                  # exactly once
+            partial = np.flatnonzero(bytes_ < 16)
+            assert set(partial) <= {0, len(bytes_) - 1}
+            assert (bytes_[partial] <= 15).all()
+        # no block to spare: one fewer would miss the tail when e = 15
+        assert (blocks - 1) * port._STEP - 15 < n
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided"])
+def test_kernel_launch_refuses_a_wrong_out_view(bad):
+    """The launch writes `out` in place at any address; a view the kernel
+    would overrun or misread is refused before any launch."""
+    shards = torch.zeros((3, 64), dtype=torch.uint8)
+    out = {"shape": torch.zeros((2, 63), dtype=torch.uint8),
+           "dtype": torch.zeros((2, 64), dtype=torch.int32),
+           "strided": torch.zeros((2, 128), dtype=torch.uint8)[:, ::2]}[bad]
+    before = dict(port.LAUNCHES)
+    with pytest.raises(ValueError, match="out must be"):
+        port._launch(port.generator_matrix(3, 2), shards, out=out)
+    assert port.LAUNCHES == before

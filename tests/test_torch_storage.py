@@ -376,7 +376,8 @@ def test_recover_image_equals_reference_leaf_for_leaf(tmp_path, damage):
                        gaps_out=ref_gaps, pid_tab_out=ref_pids)
     assert image.log_data.device.type == "cpu"
     got = convert.image_to_numpy(image)
-    ref_img = convert.image_to_numpy(convert.image_from_numpy(want))
+    ref_img = convert.image_to_numpy(
+        convert.image_from_numpy(want, device="cpu"))
     assert set(got) == set(ref_img) == set(image._fields)
     for leaf in got:
         np.testing.assert_array_equal(got[leaf], ref_img[leaf], err_msg=leaf)
