@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch port (`ripplemq_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--dataplane-only]
 
-Runs only where `torch.cuda.is_available()`; exits nonzero at once
+`--dataplane-only` builds the kernels and runs only phase 8, without
+the result line: a loop for measuring the DataPlane. Runs only where `torch.cuda.is_available()`; exits nonzero at once
 elsewhere, and when run outside a checkout of the repository (the port's
 package must be importable next to it). Every phase prints one line; a
 phase that fails raises, and the script exits nonzero with no result.
@@ -17,7 +18,10 @@ phase that fails raises, and the script exits nonzero with no result.
    A = 64 and A = 1024 active entries, every base in the ring's last B
    rows (windows clipped at the ring end), and 64 entries that no
    replica writes, all from one cloned random log, the whole log
-   compared with torch.equal; then small configurations that reach the
+   compared with torch.equal; then the dataplane path's shapes (1024 x 5,
+   slots 2048, B 32: the 1.36 GB ring) at every active-set bucket A in
+   {8, 32, 128, 512, 1024}, the whole log compared; then small
+   configurations that reach the
    kernel's register path (SB = 25; logs and entries at 1, 3 and 8-byte
    offsets; bases from -B) and its bulk path with SB % 16 != 0
    (SB = 24); then the GF(2^8) kernel against its plain version
@@ -48,15 +52,39 @@ phase that fails raises, and the script exits nonzero with no result.
    lost, `rebuild_records` from the other three equal to the record
    stream; every two-loss pattern of the widest group; one group's
    frames equal to the CPU encoder's;
+8. the dataplane path: `DataPlane` on CUDA at the broker's latency shape
+   (1024 partitions x 5 replicas, slots 2048, B 32, SB 128: a 1.36 GB
+   ring log on the card and a 268 MB host mirror), two planes in turn:
+   A, the legacy binding with `SegmentStore(erasure=True)` at 64 MiB
+   segments, durability "async" and the host read mirror; B,
+   fused_control + packed_writes with no store and no mirror, so every
+   consume is a device `read_many` (read_batch 128). Each plane: an
+   election of all 1024 partitions in one vote round, `warm`; 16
+   threads x 250 single-message produces, each awaited (appends/s, ack
+   p50/p99/p999, `engine.dispatch_us`, `settle.commit_wait_us`); a bulk
+   backlog of 4 batches of 32 on every partition (appends/s, rounds per
+   dispatch); on A, a ring lap of 72 more batches on 4 partitions (trim
+   rises; their oldest rows come from the store); offset commits for 64
+   consumer slots on 64 partitions, read back through `read_offset`; 32
+   consumer threads walking every partition through `read` (B rotates
+   the serving replica over all 5), every acked message back exactly
+   once, byte-exact, at its acked offset; on A, a restart
+   (`recover_image` + `install` into a fresh plane), everything re-read
+   exactly, one more batch a partition read back; the device log's
+   rows of every acked message still in the ring equal to the packed
+   row on all 5 replicas (and to the host mirror's, on A) after the bulk,
+   after A's lap and after A's restart; the append kernel's launches at
+   least the plane's rounds;
    (launch counts are zeroed just before each path and read just after)
-8. times: each kernel's device time alone (the profiler's events by
+9. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
-9. a JSON line naming each ported kernel (gf_matmul's launches split by
-   consumer and by path), then the card line again, then the result line
+10. a JSON line naming each ported kernel (gf_matmul's launches split by
+   consumer and by path; the append variants' launches on the dataplane
+   path as `launches_dataplane`), then the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
 
@@ -73,6 +101,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -254,6 +283,26 @@ def kernel_vs_plain(ops, cfg, seed) -> dict:
             name = "append_active_packed" if packed else "append_active"
             _append_case(ops, log_k, log_p, entries, ids, base, do_write,
                          ext if packed else None, label, errs, name, False)
+    del log_k, log_p
+    torch.cuda.empty_cache()
+    # The dataplane path's shapes: its 1.36 GB ring, B = 32, and every
+    # active-set bucket the batcher pads a round to.
+    dp_cfg = EngineConfig(**DP_SHAPE)
+    log_k = torch.empty((dp_cfg.replicas, dp_cfg.partitions,
+                         dp_cfg.slots + dp_cfg.max_batch, dp_cfg.slot_bytes),
+                        dtype=torch.uint8, device=DEV).random_(generator=g)
+    log_p = log_k.clone()
+    for A in DP_BUCKETS:
+        for packed in (False, True):
+            entries, ids, base, do_write, ext = random_case(
+                g, dp_cfg, A, to_ring_end=True, unwritten=A // 8)
+            name = "append_active_packed" if packed else "append_active"
+            _append_case(ops, log_k, log_p, entries, ids, base, do_write,
+                         ext if packed else None,
+                         f"dataplane shape (R={dp_cfg.replicas} P="
+                         f"{dp_cfg.partitions} S={dp_cfg.slots} B="
+                         f"{dp_cfg.max_batch}) A={A}",
+                         errs, name, False)
     del log_k, log_p
     torch.cuda.empty_cache()
     for label, R, P, S, SB, B, A, log_off, ent_off in SMALL_APPEND:
@@ -1092,6 +1141,440 @@ def time_erasure(workdir, card) -> None:
           + ", ".join(f"{x:.1f}" for x in rates) + f" [{card}]", flush=True)
 
 
+# ------------------------------------------------ the dataplane path
+
+# The broker's latency shape (bench.py:2503-2506): a 1.36 GB ring log on
+# the card and a 268 MB host mirror; plane B reads at the consume
+# shape's read_batch (bench.py:2514-2517).
+DP_SHAPE = dict(partitions=1024, replicas=5, slots=2048, slot_bytes=128,
+                max_batch=32, read_batch=32, max_consumers=64,
+                max_offset_updates=8)
+DP_PLANES = {  # plane -> (engine flags, store, host mirror, read_batch)
+    "A": (dict(), True, True, 32),
+    "B": (dict(fused_control=True, packed_writes=True), False, False, 128),
+}
+DP_KERNEL = {"A": "append_active", "B": "append_active_packed"}
+DP_BUCKETS = (8, 32, 128, 512, 1024)  # `DataPlane._active_bucket` at P 1024
+LAT_THREADS, LAT_PER_THREAD = 16, 250  # bench.py:425-476
+BULK_BATCHES = 4                        # bench.py:495-502 (128 rows)
+LAP_PARTS = 4
+CONSUMERS = 32
+OFFSET_PARTS = 64
+PAYLOAD_BYTES = 100                     # bench.py:108
+# The round-stage histograms of the plane's metrics: dispatch (host
+# launch), commit wait (dispatch -> committed on the host, from the
+# dispatch's start), settle-window entry, standby acks, persist, and
+# dispatch -> ack release.
+STAGES = ("engine.dispatch_us", "settle.commit_wait_us",
+          "settle.enter_wait_us", "settle.standby_ack_us",
+          "settle.persist_us", "settle.release_us")
+
+
+def payload(pid: int, seq: int, filler: bytes) -> bytes:
+    """A unique 100-byte message: producer id and sequence, then seeded
+    filler."""
+    head = b"p%05d-s%07d-" % (pid, seq)
+    return head + filler[: PAYLOAD_BYTES - len(head)]
+
+
+class Acked:
+    """Every acked message by partition, at its acked offset."""
+
+    def __init__(self, P: int):
+        self.by_part = [[] for _ in range(P)]
+        self.lock = threading.Lock()
+
+    def add(self, slot: int, base: int, msgs) -> None:
+        if base < 0:
+            raise AssertionError(f"partition {slot}: ack with base {base}")
+        with self.lock:
+            self.by_part[slot].extend((base + i, m) for i, m in enumerate(msgs))
+
+    def count(self) -> int:
+        return sum(len(v) for v in self.by_part)
+
+
+def consume_all(dp, acked: Acked, rotate: bool, start=None) -> tuple:
+    """CONSUMERS threads walk every partition from `start` (0) through
+    `dp.read`, continuing from next_offset; each answer must be exactly
+    the acked messages whose offsets lie in [offset, next_offset), in
+    offset order, so every acked message comes back once, byte-exact, at
+    its acked offset. `rotate` moves the serving replica to the next one
+    on every call. Returns (messages read, seconds)."""
+    P, R = dp.cfg.partitions, dp.cfg.replicas
+    got = [0] * CONSUMERS
+    errors = []
+
+    def walk(p: int) -> int:
+        want = sorted(m for m in acked.by_part[p]
+                      if start is None or m[0] >= start[p])
+        off = 0 if start is None else int(start[p])
+        i = n = calls = 0
+        while True:
+            replica = (p + calls) % R if rotate else 0
+            msgs, nxt = dp.read(p, off, replica=replica)
+            calls += 1
+            if nxt == off:
+                break
+            j = i
+            while j < len(want) and want[j][0] < nxt:
+                j += 1
+            if msgs != [m for _, m in want[i:j]] or (
+                    i < j and want[i][0] < off):
+                raise AssertionError(
+                    f"partition {p}: read({off}) -> {len(msgs)} messages "
+                    f"to {nxt}, acked {j - i} in that window")
+            n += len(msgs)
+            i, off = j, nxt
+        if i != len(want):
+            raise AssertionError(f"partition {p}: read {i} of "
+                                 f"{len(want)} acked messages")
+        return n
+
+    def worker(tid: int) -> None:
+        try:
+            got[tid] = sum(walk(p) for p in range(tid, P, CONSUMERS))
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+               for t in range(CONSUMERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    secs = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"consume failed: {errors[:3]}")
+    return sum(got), secs
+
+
+def check_device_ring(dp, acked_sets, term, label) -> int:
+    """Every acked message still in the ring (offset >= max(log_end -
+    slots, trim)), read from the device log on EVERY replica, must be
+    exactly its packed row: length, `term`, payload, zeros; on a plane
+    with the host mirror, the mirror's row too. Reads served from the
+    mirror or the store never look at the device log, so this is what
+    holds the append launches of those phases to what was acked.
+    Returns the rows checked on each replica."""
+    cfg = dp.cfg
+    S, SB = cfg.slots, cfg.slot_bytes
+    parts, offs, msgs = [], [], []
+    for p in range(cfg.partitions):
+        lo = max(dp.log_end(p) - S, int(dp.trim[p]))
+        for acked in acked_sets:
+            for off, m in acked.by_part[p]:
+                if off >= lo:
+                    parts.append(p)
+                    offs.append(off)
+                    msgs.append(m)
+    n = len(msgs)
+    want = np.zeros((n, SB), np.uint8)
+    want[:, 0:4] = np.array([len(m) for m in msgs], "<i4").view(
+        np.uint8).reshape(n, 4)
+    want[:, 4:8] = np.frombuffer(np.array(term, "<i4").tobytes(), np.uint8)
+    for i, m in enumerate(msgs):
+        want[i, ROW_HEADER:ROW_HEADER + len(m)] = np.frombuffer(m, np.uint8)
+    p_idx, pos = np.asarray(parts, np.int64), np.asarray(offs, np.int64) % S
+    with dp._device_lock:
+        got = dp._state.log_data[:, torch.as_tensor(p_idx, device=DEV),
+                                 torch.as_tensor(pos, device=DEV)].cpu().numpy()
+    for r in range(got.shape[0]):
+        bad = np.flatnonzero((got[r] != want).any(axis=1))
+        if bad.size:
+            raise AssertionError(
+                f"{label}: replica {r}'s device log differs from the acked "
+                f"row at {bad.size} of {n} offsets, first (partition, "
+                f"offset) {[(parts[i], offs[i]) for i in bad[:4]]}")
+    if dp._host_ring is not None:
+        bad = np.flatnonzero((dp._host_ring[p_idx, pos] != want).any(axis=1))
+        if bad.size:
+            raise AssertionError(
+                f"{label}: the host mirror differs from the acked row at "
+                f"{bad.size} of {n} offsets")
+    print(f"dataplane path: {label}: {n} acked rows in the ring equal on all "
+          f"{got.shape[0]} replicas of the device log"
+          f"{' and in the host mirror' if dp._host_ring is not None else ''}",
+          flush=True)
+    return n
+
+
+def hist_window(h, before):
+    """p50, p99 (log2-bucket upper bounds) and the exact mean of the
+    observations a histogram took since `before` = (bins, count,
+    total)."""
+    bins = [a - b for a, b in zip(h.bins, before[0])]
+    count, total = h.count - before[1], h.total - before[2]
+    if count == 0:
+        return 0, 0, 0.0
+
+    def q(x):
+        seen = 0
+        for i, b in enumerate(bins):
+            seen += b
+            if seen >= x * count:
+                return 1 << i
+        return h.max
+
+    return q(0.5), q(0.99), total / count
+
+
+def hist_mark(h):
+    return list(h.bins), h.count, h.total
+
+
+def produce_latency(dp, acked, rng_seed) -> dict:
+    """LAT_THREADS threads x LAT_PER_THREAD single-message submits, each
+    awaited before the next, at seeded random partitions."""
+    P = dp.cfg.partitions
+    lats, errors = [], []
+    hists = {s: dp.metrics.histogram(s) for s in STAGES}
+    marks = {s: hist_mark(h) for s, h in hists.items()}
+
+    def worker(tid):
+        try:
+            rng = np.random.default_rng(rng_seed * 1000 + tid)
+            filler = rng.integers(0, 256, PAYLOAD_BYTES, dtype=np.uint8).tobytes()
+            for seq, slot in enumerate(rng.integers(0, P, LAT_PER_THREAD)):
+                m = payload(tid, seq, filler)
+                t0 = time.perf_counter()
+                base = dp.submit_append(int(slot), [m]).result(timeout=120)
+                lats.append(time.perf_counter() - t0)
+                acked.add(int(slot), base, [m])
+        except Exception as e:
+            errors.append((tid, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+               for t in range(LAT_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    secs = time.perf_counter() - t0
+    if errors or len(lats) != LAT_THREADS * LAT_PER_THREAD:
+        raise AssertionError(f"latency producers failed: {errors[:3]}")
+    a = np.asarray(lats) * 1e3
+    stages = {s: hist_window(h, marks[s]) for s, h in hists.items()}
+    d50, d99, dmean = stages["engine.dispatch_us"]
+    w50, _, wmean = stages["settle.commit_wait_us"]
+    return dict(appends_per_s=len(lats) / secs, p50_ms=float(np.percentile(a, 50)),
+                p99_ms=float(np.percentile(a, 99)),
+                p999_ms=float(np.percentile(a, 99.9)),
+                dispatch_us_p50=d50, dispatch_us_p99=d99,
+                dispatch_us_mean=dmean, commit_wait_us_p50=w50,
+                commit_wait_us_mean=wmean,
+                stage_means_us={s.split(".")[1][:-3]: round(v[2], 1)
+                                for s, v in stages.items()})
+
+
+def produce_bulk(dp, acked, parts, batches, pid0, rng_seed) -> dict:
+    """`batches` batches of max_batch messages on every partition of
+    `parts`, all submitted before any is awaited."""
+    B = dp.cfg.max_batch
+    rng = np.random.default_rng(rng_seed)
+    filler = rng.integers(0, 256, PAYLOAD_BYTES, dtype=np.uint8).tobytes()
+    r0, d0 = dp.rounds, dp.dispatches
+    t0 = time.perf_counter()
+    subs = []
+    for k in range(batches):
+        for p in parts:
+            msgs = [payload(pid0 + p, k * B + i, filler) for i in range(B)]
+            subs.append((p, msgs, dp.submit_append(p, msgs)))
+    for p, msgs, fut in subs:
+        acked.add(p, fut.result(timeout=600), msgs)
+    secs = time.perf_counter() - t0
+    rounds, disp = dp.rounds - r0, dp.dispatches - d0
+    return dict(messages=len(subs) * B, appends_per_s=len(subs) * B / secs,
+                rounds=rounds, dispatches=disp,
+                rounds_per_dispatch=rounds / max(1, disp), seconds=secs)
+
+
+def dp_plane(plane, cfg, store_dir):
+    _, with_store, mirror, _ = DP_PLANES[plane]
+    store = (SegmentStore(store_dir, segment_bytes=SEG_BYTES, erasure=True)
+             if with_store else None)
+    # No `device`: the plane runs on CUDA (it raises without a GPU).
+    return dataplane.DataPlane(cfg, store=store, durability="async",
+                               host_read_cache=mirror), store
+
+
+def count_calls(obj, name):
+    """Count calls of `obj.name` (an instance attribute wrapper)."""
+    real = getattr(obj, name)
+    calls = [0]
+
+    def wrapped(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    setattr(obj, name, wrapped)
+    return calls
+
+
+def dataplane_plane(plane, seed, card, workdir) -> dict:
+    """One plane of the dataplane path, traffic 1-8 (see the module
+    docstring); raises on any failed check."""
+    flags, with_store, mirror, read_batch = DP_PLANES[plane]
+    cfg = EngineConfig(**{**DP_SHAPE, "read_batch": read_batch}, **flags)
+    P, B = cfg.partitions, cfg.max_batch
+    store_dir = os.path.join(workdir, f"dp-store-{plane}")
+    dp, store = dp_plane(plane, cfg, store_dir)
+    planes = [dp]
+    dp.start()
+    out = {}
+    try:
+        won = dp.elect({p: (0, 1) for p in range(P)})
+        if not all(won.values()):
+            raise AssertionError(f"plane {plane}: election lost "
+                                 f"{[p for p, w in won.items() if not w][:8]}")
+        for p in range(P):
+            dp.set_leader(p, 0, 1)
+        dp.warm(buckets=(8, 32))
+        torch.cuda.synchronize()
+
+        append_ops.reset_launches()
+        acked = Acked(P)
+        out["latency"] = produce_latency(dp, acked, seed)
+        out["bulk"] = produce_bulk(dp, acked, range(P), BULK_BATCHES, 10_000,
+                                   seed + 1)
+        ring_rows = [check_device_ring(dp, [acked], 1,
+                                       f"plane {plane} after the bulk")]
+        if with_store:
+            lap = cfg.slots // B + 8  # past `slots` rows a partition
+            out["lap"] = produce_bulk(dp, acked, range(LAP_PARTS), lap,
+                                      20_000, seed + 2)
+            trims = [int(t) for t in dp.trim[:LAP_PARTS]]
+            if min(trims) <= 0:
+                raise AssertionError(f"plane {plane}: trim never rose {trims}")
+            out["lap"]["trim"] = trims
+            ring_rows.append(check_device_ring(
+                dp, [acked], 1, f"plane {plane} after the ring lap"))
+        # Offset commits: 64 consumer slots on each of 64 partitions,
+        # max_offset_updates at a time.
+        rng = np.random.default_rng(seed + 3)
+        vals = rng.integers(0, 1 << 30, size=(OFFSET_PARTS, cfg.max_consumers))
+        U = cfg.max_offset_updates
+        futs = [dp.submit_offsets(p, [(c, int(vals[p, c]))
+                                      for c in range(c0, c0 + U)])
+                for p in range(OFFSET_PARTS)
+                for c0 in range(0, cfg.max_consumers, U)]
+        if not all(f.result(timeout=120) is True for f in futs):
+            raise AssertionError(f"plane {plane}: an offset commit failed")
+        bad = [(p, c) for p in range(OFFSET_PARTS)
+               for c in range(cfg.max_consumers)
+               if dp.read_offset(p, c) != int(vals[p, c])]
+        if bad:
+            raise AssertionError(f"plane {plane}: read_offset differs at {bad[:4]}")
+
+        store_reads = count_calls(dp, "_read_store")
+        h0, d0 = dp.read_cache_hits, dp.read_dispatches
+        n_read, secs = consume_all(dp, acked, rotate=not mirror)
+        if n_read != acked.count():
+            raise AssertionError(f"plane {plane}: read {n_read} of "
+                                 f"{acked.count()} acked messages")
+        out["consume"] = dict(messages=n_read, msgs_per_s=n_read / secs,
+                              mirror_hits=dp.read_cache_hits - h0,
+                              read_dispatches=dp.read_dispatches - d0,
+                              store_reads=store_reads[0])
+        if not mirror and out["consume"]["read_dispatches"] == 0:
+            raise AssertionError(f"plane {plane}: no device read dispatched")
+
+        if with_store:
+            # Restart: recover the store and install into a fresh plane.
+            dp.stop()
+            store.close()
+            t0 = time.perf_counter()
+            gaps, pids = {}, {}
+            image = dataplane.recover_image(cfg, store_dir, gaps_out=gaps,
+                                            pid_tab_out=pids)
+            dp, store = dp_plane(plane, cfg, store_dir)
+            planes.append(dp)
+            dp.install(image, settled_gaps=gaps, pid_table=pids)
+            torch.cuda.synchronize()
+            restart_s = time.perf_counter() - t0
+            del image
+            dp.start()
+            for p in range(P):
+                dp.set_leader(p, 0, 1)
+            n_again, secs_again = consume_all(dp, acked, rotate=False)
+            if n_again != acked.count():
+                raise AssertionError(f"plane {plane}: after restart read "
+                                     f"{n_again} of {acked.count()}")
+            ends = [dp.log_end(p) for p in range(P)]
+            after = Acked(P)
+            out["after_restart"] = produce_bulk(dp, after, range(P), 1,
+                                                30_000, seed + 4)
+            n_new, _ = consume_all(dp, after, rotate=False, start=ends)
+            if n_new != after.count():
+                raise AssertionError(f"plane {plane}: new batch read "
+                                     f"{n_new} of {after.count()}")
+            ring_rows.append(check_device_ring(
+                dp, [acked, after], 1, f"plane {plane} after the restart"))
+            out["restart"] = dict(recover_install_s=restart_s,
+                                  reread=n_again, reread_s=secs_again,
+                                  new_read=n_new)
+        torch.cuda.synchronize()
+        out["launches"] = dict(append_ops.LAUNCHES)
+        out["rounds"] = sum(d.rounds for d in planes)
+        out["dispatches"] = sum(d.dispatches for d in planes)
+        out["acked"] = acked.count()
+        out["ring_rows"] = ring_rows
+        out["step_errors"] = sum(d.step_errors for d in planes)
+    finally:
+        dp.stop()
+        if store is not None:
+            store.close()
+    name = DP_KERNEL[plane]
+    if out["step_errors"]:
+        raise AssertionError(f"plane {plane}: {out['step_errors']} step errors")
+    if not out["launches"][name] >= out["rounds"] > 0:
+        raise AssertionError(f"plane {plane}: {out['launches']} launches for "
+                             f"{out['rounds']} rounds")
+    lat, bulk, con = out["latency"], out["bulk"], out["consume"]
+    text = (f"dataplane path: plane {plane} ({'legacy, store + mirror' if with_store else 'fused+packed, device reads'}, "
+            f"P={P} R={cfg.replicas} slots={cfg.slots} B={B} RB={cfg.read_batch}): "
+            f"latency {lat['appends_per_s']:.1f} appends/s, ack p50 "
+            f"{lat['p50_ms']:.3f} p99 {lat['p99_ms']:.3f} p999 "
+            f"{lat['p999_ms']:.3f} ms, engine.dispatch_us p50 "
+            f"{lat['dispatch_us_p50']} p99 {lat['dispatch_us_p99']} mean "
+            f"{lat['dispatch_us_mean']:.1f}, settle.commit_wait_us p50 "
+            f"{lat['commit_wait_us_p50']} mean {lat['commit_wait_us_mean']:.1f}, "
+            f"stage means us {lat['stage_means_us']}; "
+            f"bulk {bulk['messages']} msgs {bulk['appends_per_s']:.1f} appends/s "
+            f"in {bulk['rounds']} rounds / {bulk['dispatches']} dispatches "
+            f"({bulk['rounds_per_dispatch']:.2f} rounds/dispatch); ")
+    if "lap" in out:
+        text += (f"ring lap {out['lap']['messages']} msgs on {LAP_PARTS} "
+                 f"partitions, trim {out['lap']['trim']}; ")
+    text += (f"consume {con['messages']} msgs {con['msgs_per_s']:.1f} msgs/s "
+             f"(mirror hits {con['mirror_hits']}, read_dispatches "
+             f"{con['read_dispatches']}, store reads {con['store_reads']}"
+             f"{', replica rotated over all ' + str(cfg.replicas) if not mirror else ''}); "
+             f"offsets {OFFSET_PARTS}x{cfg.max_consumers} via read_offset ok; ")
+    if "restart" in out:
+        rs = out["restart"]
+        text += (f"restart: recover_image + install {rs['recover_install_s']:.3f} s, "
+                 f"{rs['reread']} msgs re-read exactly, one more batch on "
+                 f"every partition read back ({rs['new_read']}); ")
+    text += (f"device log rows checked on every replica {out['ring_rows']}; "
+             f"{out['acked']} acked = read back; {name} launches "
+             f"{out['launches'][name]} >= {out['rounds']} rounds "
+             f"({out['dispatches']} dispatches) [{card}]")
+    print(text, flush=True)
+    return out
+
+
+def dataplane_path(seed, card, workdir) -> dict:
+    """Both planes, one after the other (each frees its 1.36 GB log)."""
+    res = {}
+    for plane in DP_PLANES:
+        res[plane] = dataplane_plane(plane, seed, card, workdir)
+        torch.cuda.empty_cache()
+    return res
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -1111,6 +1594,9 @@ def build_kernels() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dataplane-only", action="store_true",
+                    help="build the kernels and run only the dataplane "
+                         "path (a measurement loop: no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs on the GPU "
@@ -1122,6 +1608,13 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     build_kernels()
+    if args.dataplane_only:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            dataplane_path(args.seed, card, workdir)
+        print(f"dataplane path: both planes in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
     errs["gf_matmul"] = rs_kernel_vs_plain(args.seed)
@@ -1139,9 +1632,14 @@ def main() -> int:
         rs_stripes = stripe_path(rounds, card)
         del rounds
         time_erasure(workdir, card)
+        dp_runs = dataplane_path(args.seed, card, workdir)
+    launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
+                   for p, r in dp_runs.items()}
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
-                    launches=launches[name], max_abs_err=errs[name],
+                    launches=launches[name],
+                    launches_dataplane=launches_dp[name],
+                    max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],
                     bound_ms=times[name]["bound_ms"], bound_by="bytes",

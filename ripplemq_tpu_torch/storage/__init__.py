@@ -5,6 +5,9 @@
   the committed data-plane log; replay rebuilds device state on restart.
 - `erasure` — RS(3,2) shards of sealed segments, encoded and repaired
   with the GF(2⁸) kernel.
+- `memstore` — the in-memory round store (the same record interface,
+  no disk); `logindex` — the (slot, offset) → record index the
+  DataPlane serves below-trim reads through.
 
 The metadata store (`metastore`) comes with a later slice.
 """

@@ -9,7 +9,7 @@
 - the engine and the erasure-coding entry points run on CUDA unless
   asked otherwise: with no device given and no GPU present,
   `make_local_fns`, `gf_matmul`, `encode_group`, `encode_segment`,
-  `SegmentStore(erasure=True)`, `recover_image` and
+  `SegmentStore(erasure=True)`, `recover_image`, `DataPlane` and
   `convert.image_from_numpy` raise instead of falling back; a tensor on
   neither the CPU nor a GPU gets no path.
 """
@@ -163,6 +163,19 @@ def test_gf_matmul_refuses_other_devices():
     with pytest.raises(ValueError, match="no GF"):
         gf_matmul(generator_matrix(3, 2), torch.zeros((3, 64), dtype=torch.uint8),
                   device="meta")
+
+
+def test_dataplane_without_device_raises_when_no_gpu(no_gpu):
+    from ripplemq_tpu_torch.broker.dataplane import DataPlane
+    from ripplemq_tpu_torch.core.config import EngineConfig
+
+    cfg = EngineConfig(partitions=4, replicas=3, slots=64, slot_bytes=32,
+                       max_batch=8, read_batch=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataPlane(cfg)
+    dp = DataPlane(cfg, device="cpu")  # built, not started: no threads
+    assert dp._state.log_data.device.type == "cpu"
+    dp.stop()
 
 
 def test_image_from_numpy_without_device_raises_when_no_gpu(no_gpu):

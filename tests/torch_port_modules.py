@@ -20,8 +20,14 @@ from ripplemq_tpu.analysis import markers
 
 PORT_TEST_MODULES = (
     "test_torch_append",
+    "test_torch_chain_settle",
+    "test_torch_dataplane",
+    "test_torch_dataplane_parity",
     "test_torch_engine",
+    "test_torch_obs",
     "test_torch_port_hygiene",
+    "test_torch_read_cache",
+    "test_torch_retention",
     "test_torch_rs",
     "test_torch_step",
     "test_torch_storage",
