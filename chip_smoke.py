@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch port (`ripplemq_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--dataplane-only]
+    python3 chip_smoke.py [--seed N] [--dataplane-only | --control-only]
 
-`--dataplane-only` builds the kernels and runs only phase 8, without
-the result line: a loop for measuring the DataPlane. Runs only where `torch.cuda.is_available()`; exits nonzero at once
+`--dataplane-only` builds the kernels and runs only phase 8, and
+`--control-only` only phase 9, without the result line: loops for
+measuring the DataPlane and the control path. Runs only where
+`torch.cuda.is_available()`; exits nonzero at once
 elsewhere, and when run outside a checkout of the repository (the port's
 package must be importable next to it). Every phase prints one line; a
 phase that fails raises, and the script exits nonzero with no result.
@@ -19,7 +21,8 @@ phase that fails raises, and the script exits nonzero with no result.
    rows (windows clipped at the ring end), and 64 entries that no
    replica writes, all from one cloned random log, the whole log
    compared with torch.equal; then the dataplane path's shapes (1024 x 5,
-   slots 2048, B 32: the 1.36 GB ring) at every active-set bucket A in
+   slots 2048, B 32: the 1.36 GB ring) and the control path's (1024 x 3:
+   the 0.82 GB ring) at every active-set bucket A in
    {8, 32, 128, 512, 1024}, the whole log compared; then small
    configurations that reach the
    kernel's register path (SB = 25; logs and entries at 1, 3 and 8-byte
@@ -76,15 +79,48 @@ phase that fails raises, and the script exits nonzero with no result.
    after A's lap and after A's restart; the append kernel's launches at
    least the plane's rounds;
    (launch counts are zeroed just before each path and read just after)
-9. times: each kernel's device time alone (the profiler's events by
+9. the control path: five brokers (examples/cluster.yaml's roster) on
+   loopback TCP, each a metadata `RaftNode` + `RaftRunner` with its
+   `PartitionManager` as the state machine; two topics of 512
+   partitions at replication factor 3; the controller's manager drives
+   a `DataPlane` on CUDA (1024 x 3, slots 2048, B 32, SB 128,
+   `SegmentStore(erasure=True)`, the host mirror), whose settle step
+   streams every round through a `RoundReplicator` to 2 standbys before
+   the ack. In turn: the assignment, applied on all 5 with equal
+   snapshots; the attach, both standbys caught up (`catchup`) and
+   admitted through Raft; `plan_elections` off the card and one vote
+   round for all 1024 partitions, the adverts through Raft; 16 x 250
+   awaited single-message produces and the bulk backlog (as plane A's),
+   the device log's acked rows on all 3 replicas and the standbys'
+   stores equal to the controller's; a broker that is neither the
+   metadata leader nor a standby stopped, its loss committed in the
+   form the broker commits only when RF cannot be met (a drill: with RF
+   met the broker re-places in one command, which resyncs nothing on
+   one card): its replica slots dead (the live-set advance, placement
+   kept), re-elections, one batch a partition at quorum 2 of 3, then
+   the re-placement `plan_assignment` computed at the loss, on whose
+   apply `_resync_slots` resyncs the revived slots on the card (device
+   time from the profiler's events), until `plan_repairs() == {}`;
+   the device log's rows equal on all 3
+   replicas again; every acked message read back exactly; then the
+   controller stopped, standby 1's store recovered (`recover_image`),
+   the image moved to the card and installed into a fresh plane,
+   `plan_controller` promoting broker 1 through Raft, re-placement and
+   elections on the promoted plane, one more batch a partition, every
+   acked message read back from it. Cuts: the topics' 3 partitions
+   scaled to 512 each, the replica axis cut from 5 to 3, the broker's
+   duty loops played by the script, the standby side a stand-in for the
+   broker server's handler (slice D2);
+10. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
-10. a JSON line naming each ported kernel (gf_matmul's launches split by
+11. a JSON line naming each ported kernel (gf_matmul's launches split by
    consumer and by path; the append variants' launches on the dataplane
-   path as `launches_dataplane`), then the card line again, then the result line
+   path as `launches_dataplane` and on the control path as
+   `launches_control`), then the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
 
@@ -110,9 +146,24 @@ import torch
 
 from ripplemq_tpu_torch import convert
 from ripplemq_tpu_torch.broker import dataplane
+from ripplemq_tpu_torch.broker.hostraft import LEADER, RaftNode, RaftRunner
+from ripplemq_tpu_torch.broker.manager import (
+    OP_BATCH,
+    OP_SET_STANDBYS,
+    OP_SET_TOPICS,
+    PartitionManager,
+)
+from ripplemq_tpu_torch.broker.replication import RoundReplicator
 from ripplemq_tpu_torch.core.config import ALIGN, ROW_HEADER, EngineConfig
 from ripplemq_tpu_torch.core.encode import decode_entries, row_extents
 from ripplemq_tpu_torch.core.state import StepInput
+from ripplemq_tpu_torch.metadata.cluster_config import ClusterConfig
+from ripplemq_tpu_torch.metadata.models import (
+    BrokerInfo,
+    Topic,
+    placement_only,
+    topics_to_wire,
+)
 from ripplemq_tpu_torch.ops import append as append_ops
 from ripplemq_tpu_torch.ops import cuda_build
 from ripplemq_tpu_torch.ops import rs as rs_ops
@@ -131,6 +182,7 @@ from ripplemq_tpu_torch.stripes.codec import (
     stripe_assignment,
 )
 from ripplemq_tpu_torch.stripes.recovery import rebuild_records
+from ripplemq_tpu_torch.wire.transport import TcpClient, TcpServer
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
@@ -285,26 +337,29 @@ def kernel_vs_plain(ops, cfg, seed) -> dict:
                          ext if packed else None, label, errs, name, False)
     del log_k, log_p
     torch.cuda.empty_cache()
-    # The dataplane path's shapes: its 1.36 GB ring, B = 32, and every
-    # active-set bucket the batcher pads a round to.
-    dp_cfg = EngineConfig(**DP_SHAPE)
-    log_k = torch.empty((dp_cfg.replicas, dp_cfg.partitions,
-                         dp_cfg.slots + dp_cfg.max_batch, dp_cfg.slot_bytes),
-                        dtype=torch.uint8, device=DEV).random_(generator=g)
-    log_p = log_k.clone()
-    for A in DP_BUCKETS:
-        for packed in (False, True):
-            entries, ids, base, do_write, ext = random_case(
-                g, dp_cfg, A, to_ring_end=True, unwritten=A // 8)
-            name = "append_active_packed" if packed else "append_active"
-            _append_case(ops, log_k, log_p, entries, ids, base, do_write,
-                         ext if packed else None,
-                         f"dataplane shape (R={dp_cfg.replicas} P="
-                         f"{dp_cfg.partitions} S={dp_cfg.slots} B="
-                         f"{dp_cfg.max_batch}) A={A}",
-                         errs, name, False)
-    del log_k, log_p
-    torch.cuda.empty_cache()
+    # The DataPlane's shapes: the dataplane path's 1.36 GB ring and the
+    # control path's 0.82 GB one (3 replicas), B = 32, at every active-set
+    # bucket the batcher pads a round to.
+    for path, shape in (("dataplane", DP_SHAPE), ("control", CTRL_SHAPE)):
+        dp_cfg = EngineConfig(**shape)
+        log_k = torch.empty((dp_cfg.replicas, dp_cfg.partitions,
+                             dp_cfg.slots + dp_cfg.max_batch,
+                             dp_cfg.slot_bytes),
+                            dtype=torch.uint8, device=DEV).random_(generator=g)
+        log_p = log_k.clone()
+        for A in DP_BUCKETS:
+            for packed in (False, True):
+                entries, ids, base, do_write, ext = random_case(
+                    g, dp_cfg, A, to_ring_end=True, unwritten=A // 8)
+                name = "append_active_packed" if packed else "append_active"
+                _append_case(ops, log_k, log_p, entries, ids, base, do_write,
+                             ext if packed else None,
+                             f"{path} shape (R={dp_cfg.replicas} P="
+                             f"{dp_cfg.partitions} S={dp_cfg.slots} B="
+                             f"{dp_cfg.max_batch}) A={A}",
+                             errs, name, False)
+        del log_k, log_p
+        torch.cuda.empty_cache()
     for label, R, P, S, SB, B, A, log_off, ent_off in SMALL_APPEND:
         for packed in (False, True):
             log_k = _offset_view((R, P, S + B, SB), log_off, g)
@@ -1253,27 +1308,33 @@ def consume_all(dp, acked: Acked, rotate: bool, start=None) -> tuple:
 def check_device_ring(dp, acked_sets, term, label) -> int:
     """Every acked message still in the ring (offset >= max(log_end -
     slots, trim)), read from the device log on EVERY replica, must be
-    exactly its packed row: length, `term`, payload, zeros; on a plane
-    with the host mirror, the mirror's row too. Reads served from the
-    mirror or the store never look at the device log, so this is what
-    holds the append launches of those phases to what was acked.
-    Returns the rows checked on each replica."""
+    exactly its packed row: length, term, payload, zeros; on a plane
+    with the host mirror, the mirror's row too. `term` is the rows' term:
+    one int, or one per set of `acked_sets`, each an int or a [P] array
+    of per-partition terms. Reads served from the mirror or the store
+    never look at the device log, so this is what holds the append
+    launches of those phases to what was acked. Returns the rows checked
+    on each replica."""
     cfg = dp.cfg
     S, SB = cfg.slots, cfg.slot_bytes
-    parts, offs, msgs = [], [], []
+    terms = term if isinstance(term, list) else [term] * len(acked_sets)
+    terms = [np.broadcast_to(np.asarray(t), (cfg.partitions,))
+             for t in terms]
+    parts, offs, msgs, row_terms = [], [], [], []
     for p in range(cfg.partitions):
         lo = max(dp.log_end(p) - S, int(dp.trim[p]))
-        for acked in acked_sets:
+        for acked, t in zip(acked_sets, terms):
             for off, m in acked.by_part[p]:
                 if off >= lo:
                     parts.append(p)
                     offs.append(off)
                     msgs.append(m)
+                    row_terms.append(int(t[p]))
     n = len(msgs)
     want = np.zeros((n, SB), np.uint8)
     want[:, 0:4] = np.array([len(m) for m in msgs], "<i4").view(
         np.uint8).reshape(n, 4)
-    want[:, 4:8] = np.frombuffer(np.array(term, "<i4").tobytes(), np.uint8)
+    want[:, 4:8] = np.array(row_terms, "<i4").view(np.uint8).reshape(n, 4)
     for i, m in enumerate(msgs):
         want[i, ROW_HEADER:ROW_HEADER + len(m)] = np.frombuffer(m, np.uint8)
     p_idx, pos = np.asarray(parts, np.int64), np.asarray(offs, np.int64) % S
@@ -1293,7 +1354,7 @@ def check_device_ring(dp, acked_sets, term, label) -> int:
             raise AssertionError(
                 f"{label}: the host mirror differs from the acked row at "
                 f"{bad.size} of {n} offsets")
-    print(f"dataplane path: {label}: {n} acked rows in the ring equal on all "
+    print(f"{label}: {n} acked rows in the ring equal on all "
           f"{got.shape[0]} replicas of the device log"
           f"{' and in the host mirror' if dp._host_ring is not None else ''}",
           flush=True)
@@ -1439,8 +1500,8 @@ def dataplane_plane(plane, seed, card, workdir) -> dict:
         out["latency"] = produce_latency(dp, acked, seed)
         out["bulk"] = produce_bulk(dp, acked, range(P), BULK_BATCHES, 10_000,
                                    seed + 1)
-        ring_rows = [check_device_ring(dp, [acked], 1,
-                                       f"plane {plane} after the bulk")]
+        ring_rows = [check_device_ring(
+            dp, [acked], 1, f"dataplane path: plane {plane} after the bulk")]
         if with_store:
             lap = cfg.slots // B + 8  # past `slots` rows a partition
             out["lap"] = produce_bulk(dp, acked, range(LAP_PARTS), lap,
@@ -1450,7 +1511,8 @@ def dataplane_plane(plane, seed, card, workdir) -> dict:
                 raise AssertionError(f"plane {plane}: trim never rose {trims}")
             out["lap"]["trim"] = trims
             ring_rows.append(check_device_ring(
-                dp, [acked], 1, f"plane {plane} after the ring lap"))
+                dp, [acked], 1,
+                f"dataplane path: plane {plane} after the ring lap"))
         # Offset commits: 64 consumer slots on each of 64 partitions,
         # max_offset_updates at a time.
         rng = np.random.default_rng(seed + 3)
@@ -1511,7 +1573,8 @@ def dataplane_plane(plane, seed, card, workdir) -> dict:
                 raise AssertionError(f"plane {plane}: new batch read "
                                      f"{n_new} of {after.count()}")
             ring_rows.append(check_device_ring(
-                dp, [acked, after], 1, f"plane {plane} after the restart"))
+                dp, [acked, after], 1,
+                f"dataplane path: plane {plane} after the restart"))
             out["restart"] = dict(recover_install_s=restart_s,
                                   reread=n_again, reread_s=secs_again,
                                   new_read=n_new)
@@ -1575,6 +1638,575 @@ def dataplane_path(seed, card, workdir) -> dict:
     return res
 
 
+# ------------------------------------------------ phase 9: the control path
+
+# Five brokers, the reference's docker-compose roster
+# (examples/cluster.yaml:15-19), on free loopback ports; two topics at
+# replication factor 3 (examples/cluster.yaml:21-23), scaled from 3 to
+# 512 partitions each to fill the broker's 1024 partition slots; the
+# engine at the broker's latency shape (bench.py:2503-2506) with the
+# replica axis cut from 5 to the topics' replication factor
+# (examples/cluster.yaml:35-36); the in-process timings of
+# ripplemq_tpu/chaos/cluster.py:52-54; 2 standbys (the default).
+CTRL_BROKERS = 5
+CTRL_TOPICS = (("topic1", 512, 3), ("topic2", 512, 3))
+CTRL_SHAPE = {**DP_SHAPE, "replicas": 3}
+CTRL_TIMINGS = dict(election_timeout_s=0.1, metadata_election_timeout_s=0.6,
+                    membership_poll_s=0.2, rpc_timeout_s=5.0)
+CTRL_TICK_S = 0.05      # BrokerServer's default metadata tick
+CTRL_WAIT_S = 30.0      # bound of every wait of the phase
+CTRL_CHUNK = 512        # leader adverts per OP_BATCH (BrokerServer's chunk)
+
+
+def wait_for(pred, what: str, timeout_s: float = CTRL_WAIT_S):
+    """Poll `pred` until it returns a true value, which is returned;
+    raises after `timeout_s`."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"control path: {what} not within {timeout_s} s")
+        time.sleep(0.005)
+
+
+class CtrlBroker:
+    """One broker of the control path: a TCP server on a free loopback
+    port, the metadata Raft (`RaftNode` + `RaftRunner` over `TcpClient`,
+    wired as BrokerServer wires them), its `PartitionManager` as the
+    state machine, and a segment store that takes the standby stream."""
+
+    def __init__(self, bid: int, workdir: str) -> None:
+        self.id = bid
+        self.server = TcpServer("127.0.0.1", 0, self.dispatch)
+        self.store_dir = os.path.join(workdir, f"ctrl-broker-{bid}")
+        self.store = self.runner = self.manager = self.client = None
+        self.applied = {}  # raft index -> (host time, command, apply s)
+        self.repl_cond = threading.Condition()
+        self.repl_expected = {}  # (sender, epoch) -> next sseq to apply
+        self.up = False
+
+    def boot(self, config, addr_of) -> None:
+        self.manager = PartitionManager(self.id, config)
+        etick = max(2, round(config.metadata_election_timeout_s / CTRL_TICK_S))
+        node = RaftNode(self.id, config.broker_ids(), apply_fn=self.apply,
+                        snapshot_fn=self.manager.snapshot,
+                        restore_fn=self.manager.restore,
+                        election_ticks=(etick, 2 * etick),
+                        seed=self.id * 7919, compact_threshold=256)
+        self.client = TcpClient()
+        self.runner = RaftRunner(node, self.client, addr_of=addr_of,
+                                 tick_interval_s=CTRL_TICK_S,
+                                 rpc_timeout_s=min(1.0, config.rpc_timeout_s))
+        self.store = SegmentStore(self.store_dir, segment_bytes=SEG_BYTES,
+                                  erasure=True)
+        self.server.start()
+        self.runner.start()
+        self.up = True
+
+    def apply(self, index: int, cmd: dict) -> None:
+        t0 = time.perf_counter()
+        self.manager.apply(index, cmd)
+        t1 = time.perf_counter()
+        self.applied[index] = (t1, cmd, t1 - t0)
+
+    def is_leader(self) -> bool:
+        with self.runner.lock:
+            return self.runner.node.role == LEADER
+
+    def dispatch(self, req: dict) -> dict:
+        kind = req.get("type", "")
+        if kind.startswith("raft."):
+            return self.runner.handle_rpc(req)
+        if kind == "repl.rounds":
+            return self.repl_rounds(req)
+        return {"ok": False, "error": f"unknown request type {kind!r}"}
+
+    def repl_rounds(self, req: dict) -> dict:
+        # A stand-in for the standby side of the committed-round stream,
+        # BrokerServer._handle_repl_rounds with its _ReplStreamGate
+        # (ripplemq_tpu/broker/server.py), which slice D2 ports. It is
+        # not a port of them: it keeps only the contract the sender
+        # relies on — a stale epoch is refused, frames apply strictly in
+        # per-(sender, epoch) sseq order (a duplicate re-applies, a gap
+        # past one second is refused with the expected counter), and
+        # every frame lands in this broker's store with one append_many.
+        epoch = int(req["epoch"])
+        cur = self.manager.current_epoch()
+        if epoch < cur:
+            return {"ok": False, "error": "stale_epoch", "epoch": cur}
+        key, sseq = (int(req.get("sender", -1)), epoch), int(req["sseq"])
+        deadline = time.monotonic() + 1.0
+        with self.repl_cond:
+            self.repl_expected.setdefault(key, 0)
+            while sseq > self.repl_expected[key]:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return {"ok": False, "expected": self.repl_expected[key],
+                            "error": "repl_seq_gap: predecessor missing"}
+                self.repl_cond.wait(left)
+            self.store.append_many([(int(t), int(s), int(b), bytes(p))
+                                    for t, s, b, p in req["records"]])
+            self.repl_expected[key] = max(self.repl_expected[key], sseq + 1)
+            self.repl_cond.notify_all()
+        return {"ok": True}
+
+    def stop(self) -> None:
+        if self.up:
+            self.up = False
+            self.runner.stop()
+            self.server.stop()
+            self.client.close()
+        if self.store is not None:
+            self.store.close()
+            self.store = None
+
+
+class MetaRaft:
+    """The five brokers' metadata Raft as the phase drives it: proposals
+    at the leader, each waited for until every live broker applied it."""
+
+    def __init__(self, brokers) -> None:
+        self.brokers = brokers
+        self.commit_s = []  # propose -> applied on every live broker
+        self.apply_s = []   # the applies' summed host time on those brokers
+
+    def live(self):
+        return [b for b in self.brokers if b.up]
+
+    def leader(self) -> CtrlBroker:
+        return wait_for(lambda: next((b for b in self.live()
+                                      if b.is_leader()), None),
+                        "a metadata leader")
+
+    def propose(self, cmd: dict, what: str) -> None:
+        leader = self.leader()
+        t0 = time.perf_counter()
+        index = leader.runner.propose(cmd)
+        if index is None:
+            raise AssertionError(f"control path: {what}: leader "
+                                 f"{leader.id} refused the proposal")
+        live = self.live()
+        wait_for(lambda: all(index in b.applied for b in live),
+                 f"{what} (raft index {index}) applied on brokers "
+                 f"{[b.id for b in live]}")
+        for b in live:
+            if b.applied[index][1] != cmd:
+                raise AssertionError(f"control path: {what}: broker {b.id} "
+                                     f"applied another command at {index}")
+        self.commit_s.append(max(b.applied[index][0] for b in live) - t0)
+        self.apply_s.append(sum(b.applied[index][2] for b in live))
+
+    def same_snapshots(self, what: str) -> None:
+        snaps = [b.manager.snapshot() for b in self.live()]
+        if any(s != snaps[0] for s in snaps[1:]):
+            raise AssertionError(f"control path: {what}: the managers' "
+                                 f"snapshots differ")
+
+
+def leaderless(m) -> int:
+    live = set(m.live)
+    return sum(a.leader is None or a.leader not in live
+               for t in m.topics for a in t.assignments)
+
+
+def ctrl_elect(meta: MetaRaft, m, what: str) -> int:
+    """One election pass of the controller duty over every leaderless
+    partition: `plan_elections` (log ends and device terms read off the
+    card), `DataPlane.elect`, the winners' adverts proposed in OP_BATCH
+    chunks. Returns the winners; every partition has a leader after."""
+    want = leaderless(m)
+    if want == 0:
+        return 0
+    cands = {}
+    deadline = time.monotonic() + CTRL_WAIT_S
+    while len(cands) < want:  # the first pass stamps the debounce
+        cands, drafts = m.plan_elections()
+        if len(cands) < want:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"control path: {what}: {len(cands)} of "
+                                   f"{want} leaderless partitions electable")
+            time.sleep(0.02)
+    won = m.dataplane.elect(cands)
+    lost = [s for s, w in won.items() if not w]
+    if lost:
+        raise AssertionError(f"control path: {what}: lost {lost[:8]}")
+    adverts = [drafts[s] for s in sorted(won)]
+    for i in range(0, len(adverts), CTRL_CHUNK):
+        meta.propose({"op": OP_BATCH, "cmds": adverts[i:i + CTRL_CHUNK]},
+                     f"{what}: leader adverts")
+    if leaderless(m) or (m.dataplane.leader < 0).any():
+        raise AssertionError(f"control path: {what}: partitions without a "
+                             f"leader after the adverts")
+    return len(adverts)
+
+
+def ctrl_plane(config, store, m, sender_id: int):
+    """A DataPlane on CUDA for the controller's manager `m`, streaming
+    every committed round to the standby set through a RoundReplicator
+    (its replicate_fn, begin/wait split wired as BrokerServer wires it).
+    Not attached, not started."""
+    dp = dataplane.DataPlane(config.engine, store=store, durability="async",
+                             host_read_cache=True)
+    rep = RoundReplicator(
+        TcpClient(), lambda b: config.broker(b).address,
+        epoch_fn=m.current_epoch, members_fn=m.current_standbys,
+        active_fn=lambda: m.current_controller() == sender_id,
+        rpc_timeout_s=min(2.0, config.rpc_timeout_s),
+        ack_timeout_s=config.rpc_timeout_s, metrics=dp.metrics,
+        sender_id=sender_id, pipeline_depth=config.repl_pipeline_depth)
+    dp.replicate_fn = rep.replicate
+    dp.replicate_begin_fn = rep.begin
+    dp.replicate_wait_fn = rep.wait
+    return dp, rep
+
+
+RESYNC_RANGE = "chip_smoke.resync"
+
+
+def timed_resyncs(dp):
+    """Wrap `dp.resync` to time each call with CUDA events on the current
+    stream, recorded around the call: a wall window that holds the device
+    work and any gap while the host enqueues it. Each call also runs in a
+    profiler range, which `ResyncProfile` reads for the device time.
+    Returns the list of (partitions, ms)."""
+    from torch.profiler import record_function
+
+    real, times = dp.resync, []
+
+    def resync(src, dst, slots):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with record_function(RESYNC_RANGE):
+            start.record()
+            real(src, dst, slots)
+            end.record()
+        end.synchronize()
+        times.append((len(slots), start.elapsed_time(end)))
+
+    dp.resync = resync
+    return times
+
+
+class ResyncProfile:
+    """The profiler over a window of the run, on every thread (the
+    resyncs run on the Raft apply thread of the controller's broker):
+    `device_ms()` gives the device time of the kernels and copies that
+    each `timed_resyncs` range launched, by the profiler's device events.
+    Where this torch cannot profile other threads, or the profiler saw
+    no device time, `device_ms()` is None: not measured."""
+
+    def __init__(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        try:
+            from torch._C._profiler import _ExperimentalConfig
+            self.prof = profile(activities=acts, experimental_config=(
+                _ExperimentalConfig(profile_all_threads=True)))
+        except (ImportError, TypeError):
+            self.prof = profile(activities=acts)
+
+    def __enter__(self):
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        return self.prof.__exit__(*exc)
+
+    def device_ms(self, calls: int):
+        from torch.autograd import DeviceType
+
+        ranges = [e for e in self.prof.events()
+                  if e.name == RESYNC_RANGE
+                  and e.device_type == DeviceType.CPU]
+        ms = [e.device_time_total / 1e3 for e in ranges]
+        if len(ms) != calls or not all(t > 0 for t in ms):
+            return None
+        return ms
+
+
+def ctrl_standby_digest(store) -> list:
+    store.flush()
+    return [(t, s, b, zlib.crc32(p)) for t, s, b, p in store.scan()]
+
+
+def control_path(seed, card, workdir) -> dict:
+    """Phase 9 (see the module docstring): the PartitionManagers of five
+    brokers on one metadata Raft over TCP, the controller's manager
+    electing and resyncing a DataPlane of 1024 partitions x 3 replicas on
+    the card, every round streamed to two standbys before its ack; a
+    broker lost, the controller lost and a standby promoted. Cuts: the
+    topics' 3 partitions scaled to 512 each, the replica axis cut to 3,
+    the broker's duty loops played by this function (they come with the
+    broker server), the standby side a stand-in (`repl_rounds`), the
+    broker loss committed as a live-set advance and then the
+    re-placement, a drill of the form the broker commits only when RF
+    cannot be met (step 6)."""
+    t_phase = time.perf_counter()
+    brokers = [CtrlBroker(i, workdir) for i in range(CTRL_BROKERS)]
+    config = ClusterConfig(
+        brokers=tuple(BrokerInfo(b.id, "127.0.0.1", b.server.port)
+                      for b in brokers),
+        topics=tuple(Topic(*t) for t in CTRL_TOPICS),
+        engine=EngineConfig(**CTRL_SHAPE), segment_bytes=SEG_BYTES,
+        durability="async", standby_count=2, **CTRL_TIMINGS)
+    cfg, P = config.engine, config.engine.partitions
+    addr_of = lambda b: config.broker(b).address  # noqa: E731
+    meta = MetaRaft(brokers)
+    planes, reps, out = [], [], {}
+    try:
+        # 1. boot
+        for b in brokers:
+            b.boot(config, addr_of)
+        leader = meta.leader()
+        print(f"control path: boot: {CTRL_BROKERS} brokers, metadata Raft "
+              f"over loopback TCP, leader broker {leader.id} after "
+              f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+        # 2. assignment
+        live = [b.id for b in brokers]
+        meta.propose(leader.manager.plan_assignment(live), "assignment")
+        meta.same_snapshots("assignment")
+        print(f"control path: assignment of {P} partitions over {live} "
+              f"applied on all {len(live)} brokers, equal snapshots, in "
+              f"{meta.commit_s[-1] * 1e3:.3f} ms", flush=True)
+        # 3. attach, standbys caught up and admitted
+        ctrl = brokers[config.controller]
+        m0 = ctrl.manager
+        dp, rep = ctrl_plane(config, ctrl.store, m0, ctrl.id)
+        planes.append(dp)
+        reps.append(rep)
+        m0.attach_dataplane(dp)
+        dp.start()
+        dp.warm(buckets=(8, 32))
+        resyncs = timed_resyncs(dp)
+        t0 = time.perf_counter()
+        while (cand := m0.plan_standby_add(config.standby_count)) is not None:
+            rep.catchup(cand, ctrl.store, timeout_s=CTRL_WAIT_S)
+            meta.propose({"op": OP_SET_STANDBYS, "epoch": m0.current_epoch(),
+                          "standbys": sorted({*m0.current_standbys(), cand})},
+                         f"standby {cand} admitted")
+            rep.finish_join(cand)
+        standbys = m0.current_standbys()
+        if len(standbys) != config.standby_count:
+            raise AssertionError(f"control path: standbys {standbys}")
+        print(f"control path: attach: DataPlane on {dp.device} (P={P} "
+              f"R={cfg.replicas} slots={cfg.slots} B={cfg.max_batch}) "
+              f"under broker {ctrl.id}'s manager, standbys {list(standbys)} "
+              f"caught up and admitted in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        # 4. elections of every partition
+        t0 = time.perf_counter()
+        n = ctrl_elect(meta, m0, "elections")
+        if n != P:
+            raise AssertionError(f"control path: {n} of {P} elected")
+        print(f"control path: elections: {n} partitions elected in one "
+              f"vote round and advertised through Raft in "
+              f"{time.perf_counter() - t0:.3f} s; every partition has a "
+              f"leader", flush=True)
+        # 5. traffic, each ack after both standbys acked the round
+        append_ops.reset_launches()
+        acked = Acked(P)
+        hists = {s: dp.metrics.histogram(s)
+                 for s in ("repl.frame_us", "repl.group_rounds")}
+        marks = {s: hist_mark(h) for s, h in hists.items()}
+        out["latency"] = lat = produce_latency(dp, acked, seed + 10)
+        repl = {s: hist_window(h, marks[s])[2] for s, h in hists.items()}
+        marks = {s: hist_mark(h) for s, h in hists.items()}
+        out["bulk"] = bulk = produce_bulk(dp, acked, range(P), BULK_BATCHES,
+                                          10_000, seed + 11)
+        repl_bulk = {s: hist_window(h, marks[s])[2]
+                     for s, h in hists.items()}
+        rows = [check_device_ring(dp, [acked], 1,
+                                  "control path: after the bulk")]
+        want = sorted(ctrl_standby_digest(ctrl.store))
+        for s in standbys:
+            if sorted(ctrl_standby_digest(brokers[s].store)) != want:
+                raise AssertionError(f"control path: standby {s}'s store "
+                                     f"differs from the controller's")
+        print(f"control path: traffic with the standby stream: "
+              f"{lat['appends_per_s']:.1f} single-message appends/s, ack "
+              f"p50 {lat['p50_ms']:.3f} p99 {lat['p99_ms']:.3f} p999 "
+              f"{lat['p999_ms']:.3f} ms, stage means us "
+              f"{lat['stage_means_us']}; bulk {bulk['messages']} msgs "
+              f"{bulk['appends_per_s']:.1f} appends/s "
+              f"({bulk['rounds_per_dispatch']:.2f} rounds/dispatch); "
+              f"repl.frame_us mean {repl['repl.frame_us']:.1f} single / "
+              f"{repl_bulk['repl.frame_us']:.1f} bulk, repl.group_rounds "
+              f"mean {repl['repl.group_rounds']:.2f} / "
+              f"{repl_bulk['repl.group_rounds']:.2f}; "
+              f"{len(want)} records equal in the stores of the controller "
+              f"and standbys {list(standbys)}", flush=True)
+        # 6. broker loss, as a drill of the placement-kept form. The
+        # reference's metadata duty (server.py _metadata_leader_duty)
+        # commits a loss as ONE plan_assignment while the live brokers
+        # can meet RF: b's slots pass to live brokers in place, keep
+        # their rows (every replica lives on this card), and nothing
+        # comes alive behind a leader, so nothing is resynced. It commits
+        # the live-set advance with the placement kept only when RF
+        # cannot be met (plan_assignment's ValueError branch), which here
+        # takes 3 brokers lost and the metadata Raft's quorum with them.
+        # To drive `_resync_slots`, the phase commits that form itself:
+        # the placement-kept advance (b's slots dead, a batch a partition
+        # at quorum 2 of 3), then the re-placement computed at the loss,
+        # whose apply revives b's slots on live brokers and resyncs them.
+        # Figures: loss -> every partition led again; re-placement ->
+        # plan_repairs() == {}. The script's batch is in neither window.
+        lead_id = meta.leader().id
+        b = next(x for x in (3, 4) if x != lead_id and x not in standbys)
+        held = sum(b in a.replicas for t in m0.topics for a in t.assignments)
+        t_loss = time.perf_counter()
+        brokers[b].stop()
+        live = [x for x in live if x != b]
+        leader = meta.leader()
+        replace = leader.manager.plan_assignment(live)
+        meta.propose({"op": OP_SET_TOPICS, "live": live,
+                      "topics": topics_to_wire(placement_only(m0.topics))},
+                     f"broker {b}'s loss (live-set advance, placement kept)")
+        dead = int((~dp.alive).sum())
+        n_reelect = ctrl_elect(meta, m0, f"re-elections after broker {b}")
+        led_s = time.perf_counter() - t_loss
+        terms2 = dp.term.copy()
+        during = Acked(P)
+        produce_bulk(dp, during, range(P), 1, 40_000, seed + 12)
+        before = len(resyncs)
+        with ResyncProfile() as prof:
+            t_replace = time.perf_counter()
+            meta.propose(replace, f"re-placement after broker {b}'s loss")
+            wait_for(lambda: m0.plan_repairs() == {}, "plan_repairs() == {}")
+            repaired_s = time.perf_counter() - t_replace
+        done = resyncs[before:]
+        if not done:
+            raise AssertionError("control path: the re-placement resynced "
+                                 "nothing")
+        device_ms = prof.device_ms(len(done))
+        del prof
+        after = Acked(P)
+        produce_bulk(dp, after, range(P), 1, 50_000, seed + 13)
+        rows.append(check_device_ring(
+            dp, [acked, during, after], [1, terms2, terms2],
+            "control path: after the resync"))
+        meta.same_snapshots(f"after broker {b}'s loss")
+        out["loss"] = dict(broker=b, replicas_held=held, dead_cells=dead,
+                           reelected=n_reelect, resyncs=done,
+                           resync_device_ms=device_ms, led_s=led_s,
+                           replace_to_repaired_s=repaired_s)
+        dev_text = ("not measured (the profiler saw no device time in "
+                    "the resyncs' ranges)" if device_ms is None else
+                    f"{sum(device_ms):.3f} ms "
+                    f"({', '.join(f'{ms:.3f}' for ms in device_ms)})")
+        print(f"control path: broker {b} lost (held a replica of {held} of "
+              f"{P} partitions), committed as the placement-kept live-set "
+              f"advance: {dead} replica slots dead, {n_reelect} partitions "
+              f"re-elected, loss -> every partition led again in "
+              f"{led_s:.3f} s; one batch a partition acked at quorum 2 of 3; "
+              f"the re-placement revived b's slots: {len(done)} resync "
+              f"calls over {sum(k for k, _ in done)} partitions on the card, "
+              f"device time (profiler events) {dev_text}, wall window (CUDA "
+              f"events around each call) "
+              f"{sum(ms for _, ms in done):.3f} ms "
+              f"({', '.join(f'{ms:.3f}' for _, ms in done)}); re-placement "
+              f"-> plan_repairs() == {{}} in {repaired_s:.3f} s (profiler "
+              f"on); one more batch a partition acked", flush=True)
+        # 7. every acked message read back exactly once, byte-exact
+        everything = Acked(P)
+        for part in (acked, during, after):
+            for p in range(P):
+                everything.by_part[p].extend(part.by_part[p])
+        n_read, secs = consume_all(dp, everything, rotate=False)
+        if n_read != everything.count():
+            raise AssertionError(f"control path: read {n_read} of "
+                                 f"{everything.count()}")
+        print(f"control path: read back {n_read} acked messages exactly in "
+              f"{secs:.3f} s", flush=True)
+        # 8. promotion: the controller lost, standby 1 promoted
+        t_promote = time.perf_counter()
+        rounds = dp.rounds
+        dp.stop()
+        rep.stop()
+        ctrl.stop()
+        new = brokers[min(standbys)]
+        new.store.close()
+        gaps, pids = {}, {}
+        image = dataplane.recover_image(cfg, new.store_dir, gaps_out=gaps,
+                                        pid_tab_out=pids)
+        image = type(image)(*(t.to(DEV) for t in image))  # held on the card
+        new.store = SegmentStore(new.store_dir, segment_bytes=SEG_BYTES,
+                                 erasure=True)
+        live = [x for x in live if x != ctrl.id]
+        leader = meta.leader()
+        meta.propose(leader.manager.plan_controller(live), "promotion")
+        m1 = new.manager
+        if m1.current_controller() != new.id:
+            raise AssertionError(f"control path: controller "
+                                 f"{m1.current_controller()}, not {new.id}")
+        dp1, rep1 = ctrl_plane(config, new.store, m1, new.id)
+        planes.append(dp1)
+        reps.append(rep1)
+        dp1.install(image, settled_gaps=gaps, pid_table=pids)
+        del image
+        m1.attach_dataplane(dp1)
+        dp1.start()
+        meta.propose(meta.leader().manager.plan_assignment(live),
+                     f"re-placement after broker {ctrl.id}'s loss")
+        n_promo = ctrl_elect(meta, m1, "elections on the promoted plane")
+        ends = [dp1.log_end(p) for p in range(P)]
+        last = Acked(P)
+        produce_bulk(dp1, last, range(P), 1, 60_000, seed + 14)
+        promote_s = time.perf_counter() - t_promote
+        n_new, _ = consume_all(dp1, last, rotate=False, start=ends)
+        for p in range(P):
+            everything.by_part[p].extend(last.by_part[p])
+        n_again, _ = consume_all(dp1, everything, rotate=False)
+        if n_again != everything.count() or n_new != last.count():
+            raise AssertionError(f"control path: promoted plane read "
+                                 f"{n_again} of {everything.count()} and "
+                                 f"{n_new} of {last.count()}")
+        torch.cuda.synchronize()
+        launches = dict(append_ops.LAUNCHES)
+        rounds += dp1.rounds
+        meta.same_snapshots("after the promotion")
+        out["promotion"] = dict(promote_s=promote_s, reelected=n_promo,
+                                reread=n_again, new_read=n_new)
+        print(f"control path: promotion: broker {ctrl.id} lost, broker "
+              f"{new.id} promoted (epoch {m1.current_epoch()}) from its "
+              f"standby store (recover_image, the image moved to the card, "
+              f"install), {n_promo} partitions elected; serving again "
+              f"{promote_s:.3f} s after the loss; one more batch a "
+              f"partition acked ({n_new} read back) and all {n_again} acked "
+              f"messages read back from the promoted plane", flush=True)
+        if sum(d.step_errors for d in planes):
+            raise AssertionError("control path: step errors")
+        # Both planes bind the legacy append: every round launches it, and
+        # the packed variant never runs on this path.
+        if not launches["append_active"] >= rounds > 0 \
+                or launches["append_active_packed"] != 0:
+            raise AssertionError(f"control path: append launches {launches} "
+                                 f"for {rounds} rounds of the legacy binding")
+        out["launches_control"] = launches
+        out["rounds"] = rounds
+        commit = np.asarray(meta.commit_s) * 1e3
+        applies = np.asarray(meta.apply_s) * 1e3
+        print(f"control path: done in {time.perf_counter() - t_phase:.1f} s: "
+              f"metadata commit (propose -> applied on every live broker) "
+              f"mean {commit.mean():.3f} max {commit.max():.3f} ms over "
+              f"{commit.size} proposals, of which the live brokers' applies "
+              f"(summed, one GIL) mean {applies.mean():.3f} max "
+              f"{applies.max():.3f} ms; append launches {launches} "
+              f"(append_active >= {rounds} rounds); device log rows checked "
+              f"on every replica {rows} [{card}]", flush=True)
+    finally:
+        for d in planes:
+            d.stop()
+        for r in reps:
+            r.stop()
+        for b in brokers:
+            b.stop()
+    return out
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -1594,9 +2226,13 @@ def build_kernels() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dataplane-only", action="store_true",
-                    help="build the kernels and run only the dataplane "
-                         "path (a measurement loop: no result line)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--dataplane-only", action="store_true",
+                      help="build the kernels and run only the dataplane "
+                           "path (a measurement loop: no result line)")
+    only.add_argument("--control-only", action="store_true",
+                      help="build the kernels and run only the control "
+                           "path (a measurement loop: no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs on the GPU "
@@ -1614,6 +2250,10 @@ def main() -> int:
             dataplane_path(args.seed, card, workdir)
         print(f"dataplane path: both planes in "
               f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        return 0
+    if args.control_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            control_path(args.seed, card, workdir)
         return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
@@ -1633,12 +2273,15 @@ def main() -> int:
         del rounds
         time_erasure(workdir, card)
         dp_runs = dataplane_path(args.seed, card, workdir)
+        ctrl = control_path(args.seed, card, workdir)
     launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
                    for p, r in dp_runs.items()}
+    launches_ctrl = ctrl["launches_control"]
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=launches[name],
                     launches_dataplane=launches_dp[name],
+                    launches_control=launches_ctrl[name],
                     max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],

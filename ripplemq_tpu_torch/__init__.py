@@ -5,7 +5,8 @@ H100, file for file (`ripplemq_tpu_torch/core/step.py` is the twin of
 `ripplemq_tpu/core/step.py`). The JAX package is the reference the port
 is tested against; the port never imports it, nor JAX.
 
-Ported so far (the engine, erasure-coding and DataPlane slices):
+Ported so far (the engine, erasure-coding, DataPlane and host-layer
+slices):
 
 - `core` — EngineConfig, the state/input NamedTuples of tensors, the
   host encoder, and the control/vote/read steps over an explicit
@@ -21,7 +22,13 @@ Ported so far (the engine, erasure-coding and DataPlane slices):
   in-memory round store and the retention log index;
 - `broker.dataplane` — the `DataPlane` (append batcher, resolvers,
   settle pipeline, reads; local mode), `recover_image` /
-  `replay_records`; `broker.replication.FencedError`;
+  `replay_records`;
+- `broker.hostraft`, `broker.manager`, `broker.replication` — the
+  metadata Raft, the `PartitionManager` that turns its committed
+  commands into the DataPlane's control tables, elections and resyncs,
+  and the `RoundReplicator` that streams committed rounds to standbys;
+- `wire`, `metadata`, `groups` — the codec and transports, the cluster
+  config, models and assigner, the consumer-group state machine;
 - `obs` — the lock witness, metrics registry, flight recorder and span
   ring; `utils` — the host helpers those need;
 - `convert` — numpy state/inputs/images from the reference into port

@@ -1,7 +1,9 @@
 """Broker-side planes of the port. Ported so far: `broker.dataplane` (the
-`DataPlane` in local mode, `recover_image`, `replay_records`) and
-`broker.replication`'s `FencedError`. The broker server, manager,
-metadata Raft and `RoundReplicator` come with slice D (ROADMAP.md)."""
+`DataPlane` in local mode, `recover_image`, `replay_records`),
+`broker.replication` (`RoundReplicator`, `FencedError`),
+`broker.hostraft` (the metadata Raft) and `broker.manager` (the
+`PartitionManager`). The broker server comes with slice D2
+(ROADMAP.md)."""
 
 from ripplemq_tpu_torch.broker.dataplane import (
     DataPlane,

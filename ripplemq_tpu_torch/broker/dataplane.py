@@ -70,7 +70,7 @@ from ripplemq_tpu_torch.core.encode import (
     stamp_term,
 )
 from ripplemq_tpu_torch.core.state import ReplicaState, StepInput
-from ripplemq_tpu_torch.ops.rs import default_device
+from ripplemq_tpu_torch.ops.rs import default_device, indexed_device
 from ripplemq_tpu_torch.parallel.engine import make_local_fns
 from ripplemq_tpu_torch.storage.erasure import repair_store
 from ripplemq_tpu_torch.storage.segment import (
@@ -99,10 +99,12 @@ def _to_host(x) -> np.ndarray:
 def _stage(x, device: torch.device) -> torch.Tensor:
     """A host array (or tensor) as a tensor on `device`. To CUDA: through
     pinned memory and a `non_blocking` copy on the current stream — the
-    copy is queued, not waited for. A failed copy raises; there is no
-    CPU fallback."""
+    copy is queued, not waited for. A tensor already on `device` (same
+    type and index; a CUDA device without one means the current device)
+    comes back as it is. A failed copy raises; there is no CPU
+    fallback."""
     if isinstance(x, torch.Tensor):
-        if x.device == device:
+        if x.device == indexed_device(device):
             return x
         t = x
     else:
@@ -281,7 +283,7 @@ class DataPlane:
             raise RuntimeError(
                 "no CUDA device available: pass device='cpu' to run the "
                 "data plane on the CPU explicitly")
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = indexed_device("cuda" if device is None else device)
         self.cfg = cfg
         # --- telemetry plane (obs/) ---------------------------------------
         # `metrics`/`recorder` are normally the OWNING BrokerServer's (one

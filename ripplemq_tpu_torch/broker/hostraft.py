@@ -1,0 +1,561 @@
+"""Metadata-plane Raft: a deterministic, message-driven host implementation.
+
+Fills the role JRaft plays for the reference's cluster metadata group
+(reference: mq-broker/src/main/java/metadata/raft/TopicsRaftServer.java —
+group "topics_cluster": election, replicated topic table, liveness). The
+data plane does NOT go through this: partition replication rides the
+device mesh (ripplemq_tpu_torch.core / .parallel). Metadata is low-rate (leader
+changes, membership, assignment rewrites), so a host Raft is the right
+tool (SURVEY.md §7, layer 3).
+
+Design: `RaftNode` is a pure-ish state machine — time arrives as `tick()`
+calls, network input as `handle()` (RPCs in) and `on_reply()` (responses
+in), and every method returns the list of outbound `(dst, message)`
+pairs to send. No threads, no sockets, no clocks inside. This makes the
+whole consensus layer deterministically testable: a test pumps messages
+in any order, drops or delays any subset, and asserts on state — the
+fault-injection capability the reference entirely lacked (SURVEY.md §4).
+
+`RaftRunner` binds a node to real time and a Transport for production.
+
+Implements: elections (randomized-but-seeded timeouts), log replication
+with conflict backtracking, quorum commit, leader liveness tracking
+(alive_peers — the reference's CliService.getAlivePeers equivalent,
+TopicsRaftServer.java:162-164), log compaction with snapshot install,
+and persistence hooks for durable term/vote/log state.
+
+Twin of `ripplemq_tpu/broker/hostraft.py` (PyTorch port): the same code,
+importing only the port's modules, so both packages behave alike step
+for step.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+
+from ripplemq_tpu_torch.obs.lockwitness import make_rlock
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Optional
+
+from ripplemq_tpu_torch.utils.logs import get_logger
+from ripplemq_tpu_torch.wire.transport import RpcError, Transport
+
+log = get_logger("hostraft")
+
+FOLLOWER = "follower"
+CANDIDATE = "candidate"
+LEADER = "leader"
+
+Outbound = tuple[int, dict]  # (destination node id, message)
+
+VOTE = "raft.vote"
+APPEND = "raft.append"
+SNAPSHOT = "raft.snapshot"
+
+RAFT_TYPES = (VOTE, APPEND, SNAPSHOT)
+
+
+class RaftNode:
+    """One metadata-Raft participant (see module docstring for the model).
+
+    `apply_fn(index, cmd)` is called exactly once per committed entry, in
+    index order, on every node (the TopicsStateMachine.onApply equivalent,
+    reference TopicsStateMachine.java:64-78).
+
+    `snapshot_fn()`/`restore_fn(state)` capture/install the applied state
+    for log compaction — the hooks the reference never implemented on its
+    state machines (SURVEY.md §5 checkpoint: recovery there is full
+    replay; here the log stays bounded).
+    """
+
+    def __init__(
+        self,
+        node_id: int,
+        peer_ids: list[int],
+        apply_fn: Callable[[int, Any], None],
+        *,
+        election_ticks: tuple[int, int] = (10, 20),
+        heartbeat_ticks: int = 3,
+        seed: int = 0,
+        snapshot_fn: Optional[Callable[[], Any]] = None,
+        restore_fn: Optional[Callable[[Any], None]] = None,
+        compact_threshold: int = 1024,
+        persist_fn: Optional[Callable[[dict], None]] = None,
+    ) -> None:
+        self.id = node_id
+        self.peers = [p for p in peer_ids if p != node_id]
+        self.apply_fn = apply_fn
+        self.snapshot_fn = snapshot_fn
+        self.restore_fn = restore_fn
+        self.compact_threshold = compact_threshold
+        self.persist_fn = persist_fn
+
+        self.role = FOLLOWER
+        self.term = 0
+        self.voted_for: Optional[int] = None
+        self.leader_hint: Optional[int] = None
+
+        # Log: entries[i] has global index first_index + i. Index 0 is the
+        # empty-log sentinel (last_included starts at 0, term 0).
+        self.entries: list[dict] = []       # each {"term": int, "cmd": Any}
+        self.first_index = 1                # global index of entries[0]
+        self.snap_last_index = 0            # last index covered by snapshot
+        self.snap_last_term = 0
+        self.snap_state: Any = None
+        self.commit_index = 0
+        self.last_applied = 0
+        # Highest commit index the CURRENT cluster has advertised to us
+        # this process lifetime (unclipped — a restarted node's log may
+        # trail it). Volatile by design: `last_applied >= max_commit_seen
+        # > 0` proves the locally applied metadata includes every entry
+        # committed before (re)boot — the freshness gate a restarted
+        # broker needs before trusting recovered metadata that names it
+        # controller (see BrokerServer._metadata_current).
+        self.max_commit_seen = 0
+
+        # Leader state.
+        self.next_index: dict[int, int] = {}
+        self.match_index: dict[int, int] = {}
+        self.last_ack_tick: dict[int, int] = {}
+
+        self._rng = random.Random((seed << 16) ^ node_id)
+        self._election_ticks = election_ticks
+        self._heartbeat_ticks = heartbeat_ticks
+        self._ticks = 0
+        self._ticks_since_heard = 0
+        self._election_deadline = self._new_deadline()
+        self._votes: set[int] = set()
+
+    # ------------------------------------------------------------------ util
+
+    @property
+    def quorum(self) -> int:
+        return (len(self.peers) + 1) // 2 + 1
+
+    def _new_deadline(self) -> int:
+        lo, hi = self._election_ticks
+        return self._rng.randint(lo, hi)
+
+    def last_index(self) -> int:
+        return self.first_index + len(self.entries) - 1 if self.entries else self.snap_last_index
+
+    def _term_at(self, index: int) -> int:
+        if index == self.snap_last_index:
+            return self.snap_last_term
+        i = index - self.first_index
+        if 0 <= i < len(self.entries):
+            return self.entries[i]["term"]
+        return -1  # unknown (compacted away or beyond the log)
+
+    def _entry(self, index: int) -> dict:
+        return self.entries[index - self.first_index]
+
+    def _persist(self) -> None:
+        if self.persist_fn is not None:
+            self.persist_fn(
+                {
+                    "term": self.term,
+                    "voted_for": self.voted_for,
+                    "entries": self.entries,
+                    "first_index": self.first_index,
+                    "snap_last_index": self.snap_last_index,
+                    "snap_last_term": self.snap_last_term,
+                    "snap_state": self.snap_state,
+                }
+            )
+
+    def restore(self, saved: dict) -> None:
+        """Reload persisted state (before any traffic)."""
+        self.term = saved["term"]
+        self.voted_for = saved["voted_for"]
+        self.entries = list(saved["entries"])
+        self.first_index = saved["first_index"]
+        self.snap_last_index = saved["snap_last_index"]
+        self.snap_last_term = saved["snap_last_term"]
+        self.snap_state = saved.get("snap_state")
+        if self.snap_state is not None and self.restore_fn is not None:
+            self.restore_fn(self.snap_state)
+        self.commit_index = self.snap_last_index
+        self.last_applied = self.snap_last_index
+
+    # ------------------------------------------------------------------ time
+
+    def tick(self) -> list[Outbound]:
+        """Advance logical time by one tick; returns messages to send."""
+        self._ticks += 1
+        if self.role == LEADER:
+            if self._ticks % self._heartbeat_ticks == 0:
+                return self._broadcast_appends()
+            return []
+        self._ticks_since_heard += 1
+        if self._ticks_since_heard >= self._election_deadline:
+            return self._start_election()
+        return []
+
+    def _start_election(self) -> list[Outbound]:
+        self.role = CANDIDATE
+        self.term += 1
+        self.voted_for = self.id
+        self.leader_hint = None
+        self._votes = {self.id}
+        self._ticks_since_heard = 0
+        self._election_deadline = self._new_deadline()
+        self._persist()
+        if self._votes_reached():  # single-node cluster
+            return self._become_leader()
+        req = {
+            "type": VOTE,
+            "term": self.term,
+            "cand": self.id,
+            "last_log_index": self.last_index(),
+            "last_log_term": self._term_at(self.last_index()),
+        }
+        return [(p, dict(req)) for p in self.peers]
+
+    def _votes_reached(self) -> bool:
+        return len(self._votes) >= self.quorum
+
+    def _become_leader(self) -> list[Outbound]:
+        log.info("node %d: metadata leader at term %d", self.id, self.term)
+        self.role = LEADER
+        self.leader_hint = self.id
+        nxt = self.last_index() + 1
+        self.next_index = {p: nxt for p in self.peers}
+        self.match_index = {p: 0 for p in self.peers}
+        self.last_ack_tick = {p: self._ticks for p in self.peers}
+        # No-op barrier entry: commits everything from prior terms
+        # (Raft §5.4.2 — a leader may only count replicas for entries of
+        # its own term; the no-op makes progress immediate).
+        self.entries.append({"term": self.term, "cmd": {"noop": True}})
+        self._persist()
+        self._advance_commit()  # quorum of 1: single-node commits instantly
+        return self._broadcast_appends()
+
+    # ------------------------------------------------------------- proposals
+
+    def propose(self, cmd: Any) -> tuple[Optional[int], list[Outbound]]:
+        """Leader: append `cmd`; returns (assigned index, messages).
+        Non-leader: (None, []) — caller redirects to `leader_hint`."""
+        if self.role != LEADER:
+            return None, []
+        self.entries.append({"term": self.term, "cmd": cmd})
+        self._persist()
+        index = self.last_index()
+        self._advance_commit()  # commits instantly iff quorum == 1
+        return index, self._broadcast_appends()
+
+    # ------------------------------------------------------------- messaging
+
+    def _append_for(self, peer: int) -> dict:
+        nxt = self.next_index[peer]
+        if nxt <= self.snap_last_index:
+            # Peer is behind the compacted prefix → install snapshot.
+            return {
+                "type": SNAPSHOT,
+                "term": self.term,
+                "leader": self.id,
+                "last_index": self.snap_last_index,
+                "last_term": self.snap_last_term,
+                "state": self.snap_state,
+            }
+        prev = nxt - 1
+        entries = [self._entry(i) for i in range(nxt, self.last_index() + 1)]
+        return {
+            "type": APPEND,
+            "term": self.term,
+            "leader": self.id,
+            "prev_index": prev,
+            "prev_term": self._term_at(prev),
+            "entries": entries,
+            "commit": self.commit_index,
+        }
+
+    def _broadcast_appends(self) -> list[Outbound]:
+        return [(p, self._append_for(p)) for p in self.peers]
+
+    def _step_down(self, term: int, leader: Optional[int] = None) -> None:
+        if self.role == LEADER:
+            log.info("node %d: stepping down at term %d (leader now %s)",
+                     self.id, term, leader)
+        if term > self.term:
+            self.term = term
+            self.voted_for = None
+            self._persist()
+        self.role = FOLLOWER
+        if leader is not None:
+            self.leader_hint = leader
+        self._ticks_since_heard = 0
+        self._election_deadline = self._new_deadline()
+
+    # RPC input ---------------------------------------------------------
+
+    def handle(self, msg: dict) -> dict:
+        t = msg["type"]
+        if t == VOTE:
+            return self._on_vote(msg)
+        if t == APPEND:
+            return self._on_append(msg)
+        if t == SNAPSHOT:
+            return self._on_snapshot(msg)
+        raise ValueError(f"not a raft message: {t}")
+
+    def _on_vote(self, msg: dict) -> dict:
+        if msg["term"] > self.term:
+            self._step_down(msg["term"])
+        granted = False
+        if msg["term"] == self.term and self.voted_for in (None, msg["cand"]):
+            my_last, my_term = self.last_index(), self._term_at(self.last_index())
+            up_to_date = msg["last_log_term"] > my_term or (
+                msg["last_log_term"] == my_term
+                and msg["last_log_index"] >= my_last
+            )
+            if up_to_date:
+                granted = True
+                self.voted_for = msg["cand"]
+                self._ticks_since_heard = 0  # granting resets our timeout
+                self._persist()
+        return {"ok": True, "type": VOTE, "term": self.term, "granted": granted}
+
+    def _on_append(self, msg: dict) -> dict:
+        if msg["term"] < self.term:
+            return {"ok": True, "type": APPEND, "term": self.term,
+                    "success": False, "match_index": 0}
+        if msg["term"] > self.term or self.role != FOLLOWER:
+            self._step_down(msg["term"], msg["leader"])
+        self.leader_hint = msg["leader"]
+        self._ticks_since_heard = 0
+        # UNCLIPPED leader commit: the freshness horizon a restarted
+        # node must apply up to before its metadata is current.
+        self.max_commit_seen = max(self.max_commit_seen, int(msg["commit"]))
+
+        prev = msg["prev_index"]
+        # Reject on a gap or a conflicting prev entry; leader backtracks.
+        # A prev below the snapshot cannot conflict (the compacted prefix
+        # is committed, hence consistent) — the write loop below just
+        # skips already-snapshotted entries.
+        if prev > self.last_index() or (
+            prev >= self.snap_last_index and self._term_at(prev) != msg["prev_term"]
+        ):
+            return {"ok": True, "type": APPEND, "term": self.term,
+                    "success": False, "match_index": self.last_index()}
+
+        new = msg["entries"]
+        # Skip entries we already hold that fall inside the snapshot/log.
+        write_at = prev + 1
+        for e in new:
+            if write_at <= self.snap_last_index:
+                write_at += 1
+                continue
+            if write_at <= self.last_index():
+                if self._term_at(write_at) != e["term"]:
+                    # conflict: truncate from here
+                    del self.entries[write_at - self.first_index :]
+                    self.entries.append(dict(e))
+            else:
+                self.entries.append(dict(e))
+            write_at += 1
+        if new:
+            self._persist()
+
+        match = prev + len(new)
+        if msg["commit"] > self.commit_index:
+            self.commit_index = min(msg["commit"], self.last_index())
+            self._apply_committed()
+        return {"ok": True, "type": APPEND, "term": self.term,
+                "success": True, "match_index": match}
+
+    def _on_snapshot(self, msg: dict) -> dict:
+        if msg["term"] < self.term:
+            return {"ok": True, "type": SNAPSHOT, "term": self.term, "success": False}
+        self._step_down(msg["term"], msg["leader"])
+        self.leader_hint = msg["leader"]
+        self._ticks_since_heard = 0
+        # A snapshot covers only committed entries: its last_index is a
+        # lower bound on the leader's commit (freshness horizon).
+        self.max_commit_seen = max(self.max_commit_seen,
+                                   int(msg["last_index"]))
+        if msg["last_index"] <= self.commit_index:
+            # Stale/reordered snapshot (we already committed past it):
+            # installing would roll the state machine back and re-apply
+            # committed entries. Ack our actual progress instead.
+            return {"ok": True, "type": SNAPSHOT, "term": self.term,
+                    "success": True, "match_index": self.commit_index}
+        if msg["last_index"] > self.snap_last_index:
+            self.snap_last_index = msg["last_index"]
+            self.snap_last_term = msg["last_term"]
+            self.snap_state = msg["state"]
+            self.entries = []
+            self.first_index = self.snap_last_index + 1
+            self.commit_index = max(self.commit_index, self.snap_last_index)
+            self.last_applied = self.snap_last_index
+            if self.restore_fn is not None:
+                self.restore_fn(msg["state"])
+            self._persist()
+        return {"ok": True, "type": SNAPSHOT, "term": self.term, "success": True,
+                "match_index": self.snap_last_index}
+
+    # Reply input -------------------------------------------------------
+
+    def on_reply(self, src: int, req: dict, resp: dict) -> list[Outbound]:
+        if not resp.get("ok"):
+            return []
+        if resp["term"] > self.term:
+            self._step_down(resp["term"])
+            return []
+        rtype = req["type"]
+        if rtype == VOTE and self.role == CANDIDATE and resp["term"] == self.term:
+            if resp.get("granted"):
+                self._votes.add(src)
+                if self._votes_reached():
+                    return self._become_leader()
+            return []
+        if rtype in (APPEND, SNAPSHOT) and self.role == LEADER:
+            self.last_ack_tick[src] = self._ticks
+            if rtype == SNAPSHOT:
+                if resp.get("success"):
+                    # max-guard: a reordered duplicate reply must not
+                    # regress the peer's replication progress.
+                    self.match_index[src] = max(
+                        self.match_index.get(src, 0), resp["match_index"]
+                    )
+                    self.next_index[src] = self.match_index[src] + 1
+                return []
+            if resp.get("success"):
+                self.match_index[src] = max(self.match_index.get(src, 0),
+                                            resp["match_index"])
+                self.next_index[src] = self.match_index[src] + 1
+                old_commit = self.commit_index
+                self._advance_commit()
+                if self.commit_index > old_commit:
+                    # Push the new commit index out immediately instead of
+                    # waiting for the next heartbeat: one round shorter
+                    # commit visibility on followers.
+                    return self._broadcast_appends()
+            else:
+                # Conflict backtrack: jump to the follower's log end + 1
+                # (capped below current next).
+                hint = resp.get("match_index", 0)
+                self.next_index[src] = max(
+                    1, min(self.next_index[src] - 1, hint + 1)
+                )
+                return [(src, self._append_for(src))]
+        return []
+
+    def _advance_commit(self) -> None:
+        for n in range(self.last_index(), self.commit_index, -1):
+            if self._term_at(n) != self.term:
+                break  # only current-term entries commit by counting (§5.4.2)
+            acks = 1 + sum(1 for p in self.peers if self.match_index.get(p, 0) >= n)
+            if acks >= self.quorum:
+                self.commit_index = n
+                self._apply_committed()
+                break
+
+    def _apply_committed(self) -> None:
+        while self.last_applied < self.commit_index:
+            self.last_applied += 1
+            cmd = self._entry(self.last_applied)["cmd"]
+            if not (isinstance(cmd, dict) and cmd.get("noop")):
+                self.apply_fn(self.last_applied, cmd)
+        self._maybe_compact()
+
+    def _maybe_compact(self) -> None:
+        if self.snapshot_fn is None:
+            return
+        if self.last_applied - self.snap_last_index < self.compact_threshold:
+            return
+        keep_from = self.last_applied + 1
+        self.snap_last_term = self._term_at(self.last_applied)
+        self.snap_state = self.snapshot_fn()
+        self.entries = self.entries[keep_from - self.first_index :]
+        self.first_index = keep_from
+        self.snap_last_index = keep_from - 1
+        self._persist()
+
+    # Introspection -----------------------------------------------------
+
+    def alive_peers(self, horizon_ticks: int = 10) -> list[int]:
+        """Leader's view of live membership: peers acked within the horizon
+        (the CliService.getAlivePeers role, TopicsRaftServer.java:162-164).
+        Non-leaders return [] — only the leader runs membership logic."""
+        if self.role != LEADER:
+            return []
+        alive = [self.id]
+        alive += [
+            p
+            for p in self.peers
+            if self._ticks - self.last_ack_tick.get(p, -(10**9)) <= horizon_ticks
+        ]
+        return sorted(alive)
+
+
+class RaftRunner:
+    """Binds a RaftNode to wall-clock time and a Transport.
+
+    A pump thread ticks the node every `tick_interval_s`; outbound
+    messages fan out on a worker pool (never blocking the pump), replies
+    re-enter the node under the node lock. The node itself stays
+    single-threaded: every touch happens under `self.lock`.
+    """
+
+    def __init__(
+        self,
+        node: RaftNode,
+        transport: Transport,
+        addr_of: Callable[[int], str],
+        tick_interval_s: float = 0.1,
+        rpc_timeout_s: float = 1.0,
+    ) -> None:
+        self.node = node
+        self.transport = transport
+        self.addr_of = addr_of
+        self.tick_interval_s = tick_interval_s
+        self.rpc_timeout_s = rpc_timeout_s
+        self.lock = make_rlock("RaftRunner.lock")
+        self._stop = threading.Event()
+        self._pool = ThreadPoolExecutor(
+            max_workers=max(4, 2 * len(node.peers)), thread_name_prefix="raft-io"
+        )
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=f"raft-pump-{node.id}")
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=2)
+        self._pool.shutdown(wait=False)
+
+    def handle_rpc(self, msg: dict) -> dict:
+        """Plug into the broker's request dispatcher for raft.* types."""
+        with self.lock:
+            return self.node.handle(msg)
+
+    def propose(self, cmd: Any) -> Optional[int]:
+        with self.lock:
+            index, out = self.node.propose(cmd)
+        self._send_all(out)
+        return index
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.tick_interval_s):
+            with self.lock:
+                out = self.node.tick()
+            self._send_all(out)
+
+    def _send_all(self, out: list[Outbound]) -> None:
+        for dst, msg in out:
+            self._pool.submit(self._send_one, dst, msg)
+
+    def _send_one(self, dst: int, msg: dict) -> None:
+        try:
+            resp = self.transport.call(
+                self.addr_of(dst), msg, timeout=self.rpc_timeout_s
+            )
+        except RpcError:
+            return  # unreachable peer: Raft's timeouts own recovery
+        with self.lock:
+            more = self.node.on_reply(dst, msg, resp)
+        self._send_all(more)

@@ -1,0 +1,1519 @@
+"""PartitionManager: the control-plane brain on every broker.
+
+Role-for-role equivalent of the reference's PartitionManager (reference:
+mq-broker/src/main/java/metadata/PartitionManager.java), re-shaped for the
+TPU architecture:
+
+- It is the metadata Raft's STATE MACHINE: `apply()` consumes committed
+  commands (topic/assignment rewrites, leader advertisements, consumer
+  registrations) in log order on every broker — the
+  TopicsStateMachine.setTopics + handleTopicListChange pair (reference
+  TopicsStateMachine.java:49-78, PartitionManager.java:111-164).
+- Where the reference starts/stops one JRaft server per partition, here a
+  topics change only rewrites CONTROL TABLES of the always-running device
+  program: per-partition leader slot, term, replica-liveness mask and
+  quorum (partition "start/stop" is a mask flip, never a shape change —
+  SURVEY.md §7 hard parts).
+- Cluster-leader duties (run by whichever broker holds the metadata Raft
+  lease): assignment refresh on membership change
+  (handleMembershipChange, PartitionManager.java:72-109).
+- Controller duties (the broker driving the TPU mesh): batched
+  elections for leaderless partitions and lag repair (resync) — the
+  host-coordinated election design (SURVEY.md §7 layer 5).
+
+Static slot map: topics are config-defined (as in the reference — no
+runtime topic creation, SURVEY.md §5 config), so (topic, partition) →
+engine slot is a pure function of the config, identical on every broker.
+
+Twin of `ripplemq_tpu/broker/manager.py` (PyTorch port): the same code,
+importing only the port's modules, so both packages behave alike step
+for step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+from ripplemq_tpu_torch.obs.lockwitness import make_rlock
+import time
+from typing import Optional
+
+import numpy as np
+
+from ripplemq_tpu_torch.broker.dataplane import DataPlane
+from ripplemq_tpu_torch.groups.coordinator import GroupTable
+from ripplemq_tpu_torch.groups.state import group_consumer_name
+from ripplemq_tpu_torch.metadata.assigner import assign_partitions
+from ripplemq_tpu_torch.metadata.cluster_config import ClusterConfig
+from ripplemq_tpu_torch.metadata.models import (
+    RANGE_SPACE,
+    GroupKey,
+    PartitionAssignment,
+    Topic,
+    placement_only,
+    topics_from_wire,
+    topics_to_wire,
+)
+from ripplemq_tpu_torch.stripes.codec import stripe_assignment
+
+class ConsumerTableFullError(Exception):
+    """All `max_consumers` device-table slots are bound to names. The
+    reference's consumerOffsets map grows without bound and never refuses
+    (PartitionStateMachine.java:27); this framework's table is a fixed
+    [P, C] device tensor, so the refusal must exist — and must surface as
+    a typed, client-distinguishable error rather than `internal:`."""
+
+
+# Metadata-plane command ops (the hostraft log's vocabulary).
+OP_SET_TOPICS = "set_topics"
+OP_SET_LEADER = "set_leader"
+OP_REGISTER_CONSUMER = "register_consumer"
+# Idempotent producers: the metadata plane ISSUES producer ids (one
+# replicated counter — a pid must be unique across every broker and
+# every process lifetime, or two producers' sequence spaces collide in
+# the broker's dedup table).
+OP_REGISTER_PRODUCER = "register_producer"
+# Producer-id expiry (else pids grow forever): the metadata
+# leader reaps a pid idle past pid_retention_s. Registration is also
+# the SESSION REFRESH — re-registering an existing name bumps its
+# replicated `seen` counter — and the reap command carries the counter
+# value the leader observed, so the apply re-checks idleness and a
+# racing refresh/produce-driven re-register always wins. Reaped pids
+# are never reissued (next_pid is monotone); the attached dataplane
+# drops the pid's dedup entries in the same apply.
+OP_RETIRE_PRODUCER = "retire_producer"
+# Consumer-slot recycling: release frees a name→slot binding but parks
+# the slot as DIRTY (its device offset row still holds the old
+# consumer's positions); the controller resets the row through ordinary
+# offset rounds and proposes slot_clean, which returns the slot to the
+# allocatable pool. Split into two ops so allocation stays a pure
+# function of replicated state — a slot is never handed out while any
+# broker could still serve its stale offsets.
+OP_RELEASE_CONSUMER = "release_consumer"
+OP_CONSUMER_SLOT_CLEAN = "consumer_slot_clean"
+# Consumer groups (groups/): membership changes are replicated ops; the
+# assignment is recomputed deterministically inside the apply, so every
+# broker advertises the identical generation + partition map.
+OP_GROUP_JOIN = "group_join"
+OP_GROUP_LEAVE = "group_leave"
+# Reaping an EMPTY group after its retention window (metadata-leader
+# duty): the apply is conditional on the group still being empty, so a
+# racing re-join always wins. Only here does the group's shared
+# consumer slot release — an emptied-but-retained group keeps its
+# generation and offsets (see GroupTable.leave).
+OP_GROUP_DELETE = "group_delete"
+# Controller-failover ops (broker/replication.py): which broker drives
+# the device program (fenced by a monotone epoch) and which brokers hold
+# a full copy of its committed-round stream (the standby set).
+OP_SET_CONTROLLER = "set_controller"
+OP_SET_STANDBYS = "set_standbys"
+# Follower-read leases (broker/follower.py): which standbys may answer
+# consumes from their replicated settled floor, and under WHICH
+# controller epoch. The grant is {broker_id: epoch}; an apply whose
+# epoch is not the current controller epoch is ignored, and every
+# controller handover clears the whole table — a deposed generation's
+# lease can never authorize serving past the new generation's trim/gap
+# map. Brokers re-check the lease per answered read (server.py), so
+# revocation is one metadata round, not a timeout.
+OP_SET_FOLLOWER_LEASES = "set_follower_leases"
+# Elastic partitions (online split/merge). OP_SPLIT_PARTITION carves a
+# parent's key-hash range at its midpoint into a child partition placed
+# on a SPARE engine slot (the engine's [P, R] shape is fixed at boot, so
+# elasticity spends pre-provisioned slots: `engine.partitions` beyond
+# the configured topic total; with no spare slot the apply is a
+# deterministic no-op). The split bumps the parent's generation, opens
+# the HANDOFF window (the parent's leader dual-writes migrated-range
+# traffic into the child's slot), and revokes every follower-read lease
+# (the handover fence discipline reapplied — the lease duty re-grants
+# once the child's floor is live). OP_SPLIT_CUTOVER closes the window:
+# proposed by the controller only once the parent's settled floor has
+# reached the watermark recorded at split begin (no write acked before
+# the split can be lost to a post-cutover failover) — both generations
+# bump again so any still-handoff-stamped client re-resolves.
+# OP_MERGE_PARTITIONS reabsorbs an adjacent split child's range into
+# its parent and RETIRES the child: produces draw the typed
+# `stale_partition_gen:` refusal with routing to the parent, while the
+# child's log stays readable for consumers draining it.
+OP_SPLIT_PARTITION = "split_partition"
+OP_SPLIT_CUTOVER = "split_cutover"
+OP_MERGE_PARTITIONS = "merge_partitions"
+# N commands applied atomically as ONE hostraft entry. Exists because a
+# thousand-partition election wave must not pay a thousand per-entry
+# proposal/broadcast costs: the controller advertises every winner of a
+# batched device ballot in one replicated command (the reference has no
+# analogue — each JRaft group advertises its own leader independently,
+# PartitionManager.java:200-253).
+OP_BATCH = "batch"
+
+
+def build_slot_map(config: ClusterConfig) -> dict[GroupKey, int]:
+    """Deterministic (topic, partition) → engine-slot mapping."""
+    keys = [
+        (t.name, pid) for t in config.topics for pid in range(t.partitions)
+    ]
+    keys.sort()
+    return {k: i for i, k in enumerate(keys)}
+
+
+class PartitionManager:
+    def __init__(
+        self,
+        broker_id: int,
+        config: ClusterConfig,
+        dataplane: Optional[DataPlane] = None,
+    ) -> None:
+        self.broker_id = broker_id
+        self.config = config
+        self.dataplane = dataplane
+        self.slot_map = build_slot_map(config)
+        self.lock = make_rlock("PartitionManager.lock")
+
+        # Replicated state (the metadata Raft's state machine).
+        self.topics: list[Topic] = []
+        self.live: list[int] = list(config.broker_ids())
+        self.consumers: dict[str, int] = {}
+        # Recycled-but-unreset consumer slots: released bindings whose
+        # device offset rows still hold the old consumer's positions.
+        # Not allocatable until the controller's reset rounds land and
+        # OP_CONSUMER_SLOT_CLEAN applies (see the op comments above).
+        self.dirty_consumer_slots: set[int] = set()
+        # Idempotent-producer registry: name → pid, plus the replicated
+        # pid counter (pid 0 is reserved = "no pid").
+        self.producers: dict[str, int] = {}
+        self.next_pid = 1
+        # Replicated session-refresh counter per producer name: bumped
+        # by every (re-)registration; the reaper's OP_RETIRE_PRODUCER
+        # names the value it observed and the apply drops the pid only
+        # if it still matches (idleness re-checked at apply time).
+        self.producer_seen: dict[str, int] = {}
+        # Consumer groups: replicated membership/generation/assignment.
+        self.groups = GroupTable()
+        # True while an OP_BATCH wave is expanding (lock held): group
+        # membership sub-ops defer their rebalance to the wave end.
+        self._in_wave = False
+        # Optional flight recorder (the owning BrokerServer's): group
+        # lifecycle events — join/leave/eviction/generation bumps — are
+        # control-plane transitions a rebalance timeline needs.
+        self.recorder = None
+        self._applied_index = 0
+        # Controller-failover state: the active controller, its fencing
+        # epoch, and the standby set holding its committed-round stream.
+        # Epoch 0 is the config-designated bootstrap controller.
+        self.controller_broker: int = config.controller
+        self.controller_epoch: int = 0
+        self.standbys: tuple[int, ...] = ()
+        # Stripe→member assignment (replication="striped"): derived
+        # deterministically from the standby set inside every standby-
+        # set apply and recorded beside it, so "who holds stripe i" is
+        # replicated metadata promotion can consult (stripes/codec.
+        # stripe_assignment; recovery still asks every live broker, so
+        # the map is routing truth, not a safety dependency).
+        self.stripe_holders: tuple[int, ...] = ()
+        # Follower-read leases: standby broker → controller epoch the
+        # lease was granted under (OP_SET_FOLLOWER_LEASES). Only entries
+        # matching the CURRENT epoch authorize serving; the table is
+        # cleared on every controller handover.
+        self.follower_leases: dict[int, int] = {}
+        # Elastic partitions: dynamic (topic, pid) → engine-slot
+        # extension for split children (replicated — assigned inside
+        # the split apply from the spare-slot pool, so every broker
+        # routes a child identically), and the open handoff windows:
+        # (topic, parent_pid) → {"child": pid, "watermark": parent log
+        # end the proposer observed at split begin}. Replicated so a
+        # controller that fails over mid-handoff still finishes the
+        # cutover.
+        self.dyn_slots: dict[GroupKey, int] = {}
+        self.handoffs: dict[GroupKey, dict] = {}
+        # Election debounce: slot → when it was first seen leaderless.
+        # A partition must stay leaderless for config.election_timeout_s
+        # before the controller ballots it (the role JRaft's per-group
+        # election timeout plays in the reference,
+        # PartitionRaftServer.java:85); repeated failed ballots are
+        # likewise spaced by the timeout.
+        self._leaderless_since: dict[int, float] = {}
+
+    # ------------------------------------------------- state machine hooks
+
+    def apply(self, index: int, cmd: dict) -> None:
+        """hostraft apply_fn: committed metadata commands, in log order."""
+        with self.lock:
+            self._applied_index = index
+            if cmd.get("op") == OP_BATCH:
+                # One WAVE: sub-ops expand in order, but each touched
+                # group's rebalance is deferred to the end of the wave —
+                # N membership events to one group cost ONE generation
+                # bump and ONE assignment compute, and a duplicate wave
+                # (leader retry straddling a failover re-proposing the
+                # same cmds) finds every sub-op a no-op and bumps
+                # nothing. The wave flag routes _apply_group_join/_leave
+                # onto the deferred path; everything else applies
+                # exactly as it would standalone.
+                self._in_wave = True
+                try:
+                    for sub in cmd["cmds"]:
+                        self._apply_one(sub)
+                finally:
+                    self._in_wave = False
+                    self._finish_wave()
+            else:
+                self._apply_one(cmd)
+
+    def _finish_wave(self) -> None:
+        """Rebalance every group the wave changed (lock held)."""
+        parts = {t.name: t.partitions for t in self.config.topics}
+        for group, st in self.groups.finish_wave(parts):
+            if self.recorder is not None:
+                self.recorder.record(
+                    "group_rebalance", group=group,
+                    generation=st.generation, members=len(st.members),
+                )
+
+    def _apply_one(self, cmd: dict) -> None:
+        """One command, lock held (apply + OP_BATCH expansion)."""
+        op = cmd.get("op")
+        if op == OP_SET_TOPICS:
+            self._apply_set_topics(
+                topics_from_wire(cmd["topics"]), [int(b) for b in cmd["live"]]
+            )
+        elif op == OP_SET_LEADER:
+            self._apply_set_leader(
+                cmd["topic"], int(cmd["partition"]),
+                None if cmd["leader"] is None else int(cmd["leader"]),
+                int(cmd["term"]),
+            )
+        elif op == OP_REGISTER_CONSUMER:
+            self._apply_register_consumer(str(cmd["consumer"]), int(cmd["slot"]))
+        elif op == OP_REGISTER_PRODUCER:
+            self._apply_register_producer(str(cmd["producer"]))
+        elif op == OP_RETIRE_PRODUCER:
+            self._apply_retire_producer(
+                str(cmd["producer"]), int(cmd["seen"])
+            )
+        elif op == OP_RELEASE_CONSUMER:
+            self._apply_release_consumer(str(cmd["consumer"]))
+        elif op == OP_CONSUMER_SLOT_CLEAN:
+            self.dirty_consumer_slots.discard(int(cmd["slot"]))
+        elif op == OP_GROUP_JOIN:
+            self._apply_group_join(
+                str(cmd["group"]), str(cmd["member"]),
+                tuple(str(t) for t in cmd["topics"]),
+            )
+        elif op == OP_GROUP_LEAVE:
+            self._apply_group_leave(
+                str(cmd["group"]), str(cmd["member"]),
+                str(cmd.get("reason", "leave")),
+            )
+        elif op == OP_GROUP_DELETE:
+            self._apply_group_delete(str(cmd["group"]))
+        elif op == OP_SET_CONTROLLER:
+            self._apply_set_controller(
+                int(cmd["controller"]), int(cmd["epoch"]),
+                [int(b) for b in cmd["standbys"]],
+            )
+        elif op == OP_SET_STANDBYS:
+            self._apply_set_standbys(
+                int(cmd["epoch"]), [int(b) for b in cmd["standbys"]]
+            )
+        elif op == OP_SET_FOLLOWER_LEASES:
+            self._apply_set_follower_leases(
+                int(cmd["epoch"]),
+                {int(b): int(e) for b, e in dict(cmd["leases"]).items()},
+            )
+        elif op == OP_SPLIT_PARTITION:
+            self._apply_split(
+                str(cmd["topic"]), int(cmd["partition"]),
+                int(cmd.get("watermark", 0)),
+            )
+        elif op == OP_SPLIT_CUTOVER:
+            self._apply_split_cutover(
+                str(cmd["topic"]), int(cmd["partition"]),
+                int(cmd.get("watermark", 0)),
+            )
+        elif op == OP_MERGE_PARTITIONS:
+            self._apply_merge(
+                str(cmd["topic"]), int(cmd["parent"]), int(cmd["child"])
+            )
+        # Unknown ops are ignored (forward compatibility).
+
+    def snapshot(self) -> dict:
+        """hostraft snapshot_fn — metadata state for log compaction."""
+        with self.lock:
+            return {
+                "topics": topics_to_wire(self.topics),
+                "live": list(self.live),
+                "consumers": dict(self.consumers),
+                "dirty_consumer_slots": sorted(self.dirty_consumer_slots),
+                "producers": dict(self.producers),
+                "producer_seen": dict(self.producer_seen),
+                "next_pid": self.next_pid,
+                "groups": self.groups.to_wire(),
+                "controller": self.controller_broker,
+                "controller_epoch": self.controller_epoch,
+                "standbys": list(self.standbys),
+                "stripe_holders": list(self.stripe_holders),
+                "follower_leases": {
+                    str(b): int(e) for b, e in self.follower_leases.items()
+                },
+                # Elastic partitions: the dynamic slot extension and the
+                # open handoff windows ("topic|pid" keys — wire codecs
+                # want string map keys).
+                "dyn_slots": {
+                    f"{t}|{p}": int(s)
+                    for (t, p), s in self.dyn_slots.items()
+                },
+                "handoffs": {
+                    f"{t}|{p}": dict(h)
+                    for (t, p), h in self.handoffs.items()
+                },
+            }
+
+    def restore(self, state: dict) -> None:
+        """hostraft restore_fn — install a metadata snapshot."""
+        with self.lock:
+            self.consumers = {str(k): int(v) for k, v in state["consumers"].items()}
+            # Pre-groups snapshots lack the newer sections: default them
+            # empty (same forward-compatibility rule as unknown ops).
+            self.dirty_consumer_slots = {
+                int(s) for s in state.get("dirty_consumer_slots", ())
+            }
+            self.producers = {
+                str(k): int(v) for k, v in state.get("producers", {}).items()
+            }
+            self.producer_seen = {
+                str(k): int(v)
+                for k, v in state.get("producer_seen", {}).items()
+            }
+            self.next_pid = int(state.get("next_pid", 1))
+            self.groups = GroupTable.from_wire(state.get("groups", {}))
+            # Controller fields default to bootstrap values for snapshots
+            # written before the failover machinery existed.
+            self.controller_broker = int(
+                state.get("controller", self.config.controller)
+            )
+            self.controller_epoch = int(state.get("controller_epoch", 0))
+            self.standbys = tuple(int(b) for b in state.get("standbys", ()))
+            self.stripe_holders = tuple(
+                int(b) for b in state.get(
+                    "stripe_holders", stripe_assignment(self.standbys)
+                )
+            )
+            # Pre-follower-reads snapshots: no leases were granted.
+            self.follower_leases = {
+                int(b): int(e)
+                for b, e in state.get("follower_leases", {}).items()
+            }
+            # Pre-elastic snapshots: no dynamic children, no handoffs.
+            self.dyn_slots = {
+                (k.rsplit("|", 1)[0], int(k.rsplit("|", 1)[1])): int(s)
+                for k, s in state.get("dyn_slots", {}).items()
+            }
+            self.handoffs = {
+                (k.rsplit("|", 1)[0], int(k.rsplit("|", 1)[1])):
+                    {"child": int(h["child"]),
+                     "watermark": int(h.get("watermark", 0))}
+                for k, h in state.get("handoffs", {}).items()
+            }
+            self._apply_set_topics(
+                topics_from_wire(state["topics"]),
+                [int(b) for b in state["live"]],
+                full_surface=True,
+            )
+
+    def _apply_set_controller(
+        self, controller: int, epoch: int, standbys: list[int]
+    ) -> None:
+        """Monotone-epoch controller handover (stale proposals ignored)."""
+        if epoch <= self.controller_epoch:
+            return
+        self.controller_broker = controller
+        self.controller_epoch = epoch
+        self.standbys = tuple(b for b in standbys if b != controller)
+        self.stripe_holders = stripe_assignment(self.standbys)
+        # Generation fence: every handover revokes ALL follower-read
+        # leases — the new controller's duty re-grants to the standbys
+        # it trusts, under the new epoch.
+        self.follower_leases = {}
+
+    def _apply_set_standbys(self, epoch: int, standbys: list[int]) -> None:
+        """Standby-set rewrite, valid only within the current epoch."""
+        if epoch != self.controller_epoch:
+            return
+        self.standbys = tuple(
+            b for b in standbys if b != self.controller_broker
+        )
+        self.stripe_holders = stripe_assignment(self.standbys)
+        # Brokers dropped from the standby set stop replicating — their
+        # floor parks, so their lease goes with their membership.
+        self.follower_leases = {
+            b: e for b, e in self.follower_leases.items()
+            if b in self.standbys
+        }
+
+    def _apply_set_follower_leases(
+        self, epoch: int, leases: dict[int, int]
+    ) -> None:
+        """Install the follower-read lease table, valid only within the
+        current controller epoch (a stale grant — proposed before a
+        handover committed — must not authorize the old generation)."""
+        if epoch != self.controller_epoch:
+            return
+        self.follower_leases = {
+            int(b): int(e) for b, e in leases.items()
+            if int(b) != self.controller_broker and b in self.standbys
+        }
+
+    # ------------------------------------------- elastic-partition applies
+
+    def _used_slots_locked(self) -> set[int]:
+        return set(self.slot_map.values()) | set(self.dyn_slots.values())
+
+    def _next_spare_slot_locked(self) -> Optional[int]:
+        """Lowest engine slot not owned by any configured or dynamic
+        partition (deterministic: replicated state + config only)."""
+        used = self._used_slots_locked()
+        for s in range(self.config.engine.partitions):
+            if s not in used:
+                return s
+        return None
+
+    def _find_topic(self, name: str) -> Optional[int]:
+        for i, t in enumerate(self.topics):
+            if t.name == name:
+                return i
+        return None
+
+    def _replace_assignment(self, ti: int, assign: PartitionAssignment) -> None:
+        t = self.topics[ti]
+        assigns = tuple(
+            assign if a.partition_id == assign.partition_id else a
+            for a in t.assignments
+        )
+        self.topics[ti] = t.with_assignments(assigns)
+
+    def _apply_split(self, topic: str, pid: int, watermark: int) -> None:
+        """Split `pid`'s key-hash range at its midpoint into a new child
+        partition on a spare engine slot. Deterministic no-op when the
+        parent is missing, not active, un-splittable (range width < 2),
+        capped (split_max_partitions), or no spare slot remains."""
+        ti = self._find_topic(topic)
+        if ti is None:
+            return
+        t = self.topics[ti]
+        parent = t.assignment_for(pid)
+        if parent is None or parent.state != "active":
+            return
+        if parent.range_hi - parent.range_lo < 2:
+            return
+        cap = int(self.config.split_max_partitions)
+        if cap and t.partitions >= cap:
+            return
+        slot = self._next_spare_slot_locked()
+        if slot is None:
+            return
+        mid = (parent.range_lo + parent.range_hi) // 2
+        child_pid = t.partitions
+        gen = parent.generation + 1
+        new_parent = dataclasses.replace(
+            parent, generation=gen, range_hi=mid, state="handoff",
+        )
+        child = PartitionAssignment(
+            partition_id=child_pid,
+            replicas=parent.replicas,
+            # The child starts under the PARENT's leader (dual-write
+            # wants one serialization point); term 1 distinguishes the
+            # grant from "never led". An election re-places it freely.
+            leader=parent.leader,
+            term=max(1, parent.term),
+            generation=gen,
+            range_lo=mid,
+            range_hi=parent.range_hi,
+            state="handoff",
+            origin=pid,
+        )
+        assigns = tuple(
+            new_parent if a.partition_id == pid else a
+            for a in t.assignments
+        ) + (child,)
+        self.topics[ti] = dataclasses.replace(
+            t, partitions=t.partitions + 1, assignments=assigns,
+        )
+        self.dyn_slots[(topic, child_pid)] = slot
+        self.handoffs[(topic, pid)] = {
+            "child": child_pid, "watermark": int(watermark),
+        }
+        # Fence discipline: revoke every follower-read lease FIRST —
+        # the lease duty re-grants (same epoch) only after this apply
+        # is visible everywhere, so no standby serves the pre-split
+        # routing while the child's floor comes live.
+        self.follower_leases = {}
+        if self.dataplane is not None:
+            self._push_control_tables()
+        if self.recorder is not None:
+            self.recorder.record(
+                "split_begin", topic=topic, partition=pid,
+                child=child_pid, slot=slot, mid=mid, generation=gen,
+                watermark=int(watermark),
+            )
+
+    def _apply_split_cutover(self, topic: str, pid: int,
+                             watermark: int) -> None:
+        """Close a handoff window: parent and child both return to
+        "active" under a bumped generation (clients still stamped with
+        the handoff generation re-resolve). The proposer (controller
+        reconfig duty) gates this on the parent's settled floor having
+        reached the split-begin watermark."""
+        ho = self.handoffs.get((topic, pid))
+        if ho is None:
+            return
+        ti = self._find_topic(topic)
+        if ti is None:
+            return
+        t = self.topics[ti]
+        parent = t.assignment_for(pid)
+        child = t.assignment_for(int(ho["child"]))
+        if parent is None or child is None or parent.state != "handoff":
+            self.handoffs.pop((topic, pid), None)
+            return
+        gen = max(parent.generation, child.generation) + 1
+        self._replace_assignment(ti, dataclasses.replace(
+            parent, generation=gen, state="active"))
+        self._replace_assignment(ti, dataclasses.replace(
+            child, generation=gen, state="active"))
+        self.handoffs.pop((topic, pid), None)
+        if self.recorder is not None:
+            self.recorder.record(
+                "split_cutover", topic=topic, partition=pid,
+                child=int(ho["child"]), generation=gen,
+                watermark=int(watermark),
+            )
+
+    def _apply_merge(self, topic: str, parent_pid: int,
+                     child_pid: int) -> None:
+        """Reabsorb an adjacent split child's range into its parent and
+        retire the child. No-op unless (parent, child) is an active
+        split pair with adjacent ranges and no open handoff."""
+        ti = self._find_topic(topic)
+        if ti is None:
+            return
+        t = self.topics[ti]
+        parent = t.assignment_for(parent_pid)
+        child = t.assignment_for(child_pid)
+        if parent is None or child is None:
+            return
+        if child.origin != parent_pid or (topic, parent_pid) in self.handoffs:
+            return
+        if parent.state != "active" or child.state != "active":
+            return
+        if parent.range_hi != child.range_lo:
+            return  # not adjacent (an intervening split re-carved it)
+        gen = max(parent.generation, child.generation) + 1
+        self._replace_assignment(ti, dataclasses.replace(
+            parent, generation=gen, range_hi=child.range_hi))
+        self._replace_assignment(ti, dataclasses.replace(
+            child, generation=gen, range_lo=child.range_hi,
+            state="retired"))
+        # Same fence as the split: routing changed, revoke leases; the
+        # duty re-grants under the unchanged epoch.
+        self.follower_leases = {}
+        if self.recorder is not None:
+            self.recorder.record(
+                "merge_done", topic=topic, partition=parent_pid,
+                child=child_pid, generation=gen,
+            )
+
+    def _apply_register_consumer(self, name: str, slot: int) -> None:
+        """Idempotent consumer registration. The proposed slot was chosen
+        from a PRE-proposal read, so two concurrent registrations can
+        propose the same slot; the apply path (serialized by the Raft log,
+        identical on every broker) resolves the collision by assigning the
+        lowest free slot instead."""
+        if name in self.consumers:
+            return
+        used = set(self.consumers.values()) | self.dirty_consumer_slots
+        if slot in used:
+            C = self.config.engine.max_consumers
+            free = [s for s in range(C) if s not in used]
+            if not free:
+                return  # table full; registration request will time out
+            slot = free[0]
+        self.consumers[name] = slot
+
+    def _apply_register_producer(self, name: str) -> None:
+        """Issue one pid per producer name (idempotent — the client's
+        registration proposal may be retried/duplicated). The counter is
+        replicated state: a pid is unique across brokers AND process
+        lifetimes, which is what makes it a safe dedup-table key.
+        Re-registering an EXISTING name is the session refresh: it
+        bumps the replicated seen counter the reaper's idleness check
+        keys on (see OP_RETIRE_PRODUCER)."""
+        self.producer_seen[name] = self.producer_seen.get(name, 0) + 1
+        if name in self.producers:
+            return
+        self.producers[name] = self.next_pid
+        self.next_pid += 1
+
+    def _apply_retire_producer(self, name: str, seen: int) -> None:
+        """Reap one idle pid — ONLY if its seen counter still equals
+        what the proposing leader observed: a registration refresh (or
+        a fresh client re-registering the name) racing the reap bumps
+        the counter and the reap no-ops, so an active producer never
+        loses its dedup window to a stale idleness observation."""
+        if self.producer_seen.get(name, 0) != seen:
+            return
+        pid = self.producers.pop(name, None)
+        self.producer_seen.pop(name, None)
+        if pid is not None and self.dataplane is not None:
+            # The controller's dedup table drops the reaped pid's
+            # entries in the same apply (other brokers have no table).
+            self.dataplane.drop_pids({pid})
+
+    def _apply_release_consumer(self, name: str) -> None:
+        """Free a consumer-name binding (group dissolution, member
+        eviction, or explicit release). The slot parks as DIRTY until
+        the controller's offset-reset rounds land (see the op comments):
+        reallocating it immediately would hand the new consumer the old
+        one's committed positions. The reference never releases at all —
+        its consumerOffsets map grows without bound
+        (PartitionStateMachine.java:27); this closes that as a recycle
+        instead of the PR-seed's refuse-only stance."""
+        slot = self.consumers.pop(name, None)
+        if slot is not None:
+            self.dirty_consumer_slots.add(slot)
+
+    def _apply_group_join(self, group: str, member: str,
+                          topics: tuple[str, ...]) -> None:
+        if self._in_wave:
+            st, changed = self.groups.join_deferred(group, member, topics)
+        else:
+            parts = {t.name: t.partitions for t in self.config.topics}
+            st, changed = self.groups.join(group, member, topics, parts)
+        if changed and self.recorder is not None:
+            self.recorder.record(
+                "group_join", group=group, member=member,
+                generation=st.generation, members=len(st.members),
+            )
+
+    def _apply_group_leave(self, group: str, member: str,
+                           reason: str) -> None:
+        if self._in_wave:
+            st, changed, emptied = self.groups.leave_deferred(group, member)
+        else:
+            parts = {t.name: t.partitions for t in self.config.topics}
+            st, changed, emptied = self.groups.leave(group, member, parts)
+        # An emptied group is RETAINED (generation + offsets intact):
+        # transient total-churn must not reset the group's identity.
+        # The metadata leader reaps it via OP_GROUP_DELETE only after
+        # group_retention_s of continuous emptiness.
+        if changed and self.recorder is not None:
+            self.recorder.record(
+                "group_leave", group=group, member=member, reason=reason,
+                generation=st.generation if st is not None else -1,
+                emptied=emptied,
+            )
+
+    def _apply_group_delete(self, group: str) -> None:
+        """Reap an empty group past retention: only NOW does the shared
+        offset slot release into the recycle path — the multi-tenant
+        workload's groups come and go without exhausting the fixed
+        [P, C] device table."""
+        if self.groups.delete(group):
+            self._apply_release_consumer(group_consumer_name(group))
+            if self.recorder is not None:
+                self.recorder.record("group_delete", group=group)
+
+    def _apply_set_topics(self, topics: list[Topic], live: list[int],
+                          *, full_surface: bool = False) -> None:
+        old_alive = self._alive_mask() if self.dataplane is not None else None
+        # OP SPLIT (load-bearing once placement moves
+        # across mesh shards): OP_SET_TOPICS owns PLACEMENT only. The
+        # (leader, term) surface belongs entirely to OP_SET_LEADER, so
+        # an apply here sources it from the replicated CURRENT table —
+        # whatever the payload carries is ignored (proposals strip it
+        # anyway, metadata.models.placement_only). A stale topics
+        # snapshot therefore can never regress the advertised term below
+        # the device current_term (the permanent write wedge the chaos
+        # plane caught), by construction rather than by merge. The
+        # current table is replicated state, so every broker's apply
+        # converges identically. A leader whose broker left the replica
+        # set becomes unknown (the partition re-elects); its term is
+        # kept — terms only move forward.
+        #
+        # `full_surface=True` is the SNAPSHOT-INSTALL path (restore):
+        # a snapshot is the full applied state at a log index and must
+        # carry leaders/terms; the original term-monotonic merge guards
+        # it against a current table that is already ahead.
+        merged: list[Topic] = []
+        for t in topics:
+            cur = next((c for c in self.topics if c.name == t.name), None)
+            assigns = list(t.assignments)
+            for j, a in enumerate(assigns):
+                ca = cur.assignment_for(a.partition_id) if cur else None
+                if full_surface:
+                    if ca is None:
+                        continue
+                    keep_elastic = ca.generation > a.generation
+                    if ca.term <= a.term and not keep_elastic:
+                        continue
+                    upd = a
+                    if ca.term > a.term:
+                        keep = ca.leader if (
+                            ca.leader is None or ca.leader in a.replicas
+                        ) else None
+                        upd = dataclasses.replace(
+                            upd, leader=keep, term=ca.term
+                        )
+                    if keep_elastic:
+                        # Generations only move forward, like terms: a
+                        # snapshot taken before a local split/merge
+                        # applied must not regress the routing surface.
+                        upd = dataclasses.replace(
+                            upd, generation=ca.generation,
+                            range_lo=ca.range_lo, range_hi=ca.range_hi,
+                            state=ca.state, origin=ca.origin,
+                        )
+                    assigns[j] = upd
+                elif ca is None:
+                    # New partition: no leader until OP_SET_LEADER. Its
+                    # genesis key-hash range is its 1/n-th share of the
+                    # space (the payload is placement-stripped): with
+                    # the overlapping full-range defaults, route_key
+                    # would send every key to pid 0 and a split child's
+                    # range would stay shadowed by its full-range
+                    # siblings forever.
+                    n = max(1, int(t.partitions))
+                    assigns[j] = dataclasses.replace(
+                        a, leader=None, term=0,
+                        range_lo=(RANGE_SPACE * a.partition_id) // n,
+                        range_hi=(RANGE_SPACE * (a.partition_id + 1)) // n,
+                    )
+                else:
+                    keep = (ca.leader
+                            if ca.leader is not None
+                            and ca.leader in a.replicas else None)
+                    # The elastic surface (generation/range/state/
+                    # origin) is owned by the split/merge applies, same
+                    # as (leader, term) is owned by OP_SET_LEADER:
+                    # source it from the replicated current table, not
+                    # the (stripped) placement payload.
+                    assigns[j] = dataclasses.replace(
+                        a, leader=keep, term=ca.term,
+                        generation=ca.generation, range_lo=ca.range_lo,
+                        range_hi=ca.range_hi, state=ca.state,
+                        origin=ca.origin,
+                    )
+            npids = {a.partition_id for a in assigns}
+            nparts = t.partitions
+            if cur is not None:
+                # Dynamic split children live past the configured shape:
+                # a placement payload built from config.topics (the
+                # assigner's shape) must never drop them.
+                for ca in cur.assignments:
+                    if ca.partition_id not in npids:
+                        assigns.append(ca)
+                nparts = max(nparts, cur.partitions, len(assigns))
+            assigns.sort(key=lambda a: a.partition_id)
+            merged.append(dataclasses.replace(
+                t, partitions=nparts, assignments=tuple(assigns),
+            ))
+        topics = merged
+        self.topics = topics
+        self.live = live
+        if self.dataplane is None:
+            return
+        self._push_control_tables()
+        # Repair: replica slots that just came (back) alive have missed
+        # commits; copy the leader's partition state over them. Under
+        # atomic rounds a lagging replica never diverges, so a full-slot
+        # copy from the leader is always safe.
+        new_alive = self._alive_mask()
+        came_alive = new_alive & ~old_alive
+        self._resync_slots(came_alive)
+
+    def _apply_set_leader(
+        self, topic: str, pid: int, leader: Optional[int], term: int
+    ) -> None:
+        for i, t in enumerate(self.topics):
+            if t.name != topic:
+                continue
+            assigns = list(t.assignments)
+            for j, a in enumerate(assigns):
+                if a.partition_id == pid:
+                    if term < a.term:
+                        # Stale advert (terms only move forward): a
+                        # lower-term OP_SET_LEADER applying after a
+                        # newer election would regress the control
+                        # table below the device current_term — the
+                        # permanent write wedge the chaos plane caught.
+                        # Applies are deterministic across brokers, so
+                        # every replica skips it identically.
+                        return
+                    assigns[j] = dataclasses.replace(a, leader=leader, term=term)
+            self.topics[i] = t.with_assignments(tuple(assigns))
+        if self.dataplane is not None:
+            slot = self._slot_for(topic, pid)
+            if slot is not None:
+                assign = self.assignment_of((topic, pid))
+                leader_slot = -1
+                if assign and leader is not None and leader in assign.replicas:
+                    leader_slot = assign.replicas.index(leader)
+                self.dataplane.set_leader(slot, leader_slot, term)
+
+    # -------------------------------------------------- control-table sync
+
+    def _slot_for(self, topic: str, pid: int) -> Optional[int]:
+        """(topic, pid) → engine slot across BOTH maps: the static
+        config-derived map and the replicated dynamic extension split
+        children live in. Lock not required — the static map is
+        immutable and dyn_slots reads ride the caller's apply lock or
+        tolerate a racy miss (same contract as slot_map.get did)."""
+        slot = self.slot_map.get((topic, pid))
+        if slot is None:
+            slot = self.dyn_slots.get((topic, pid))
+        return slot
+
+    def _alive_mask(self) -> np.ndarray:
+        """[P, R] mask: replica slot r of partition p is alive iff the
+        broker holding it is in the live set. Unassigned slots are dead."""
+        cfg = self.dataplane.cfg
+        alive = np.zeros((cfg.partitions, cfg.replicas), bool)
+        live = set(self.live)
+        for t in self.topics:
+            for a in t.assignments:
+                slot = self._slot_for(t.name, a.partition_id)
+                if slot is None:
+                    continue
+                for r, b in enumerate(a.replicas[: cfg.replicas]):
+                    alive[slot, r] = b in live
+        return alive
+
+    def _push_control_tables(self) -> None:
+        cfg = self.dataplane.cfg
+        # Unassigned slots (the SPARE pool splits spend) carry NO quorum
+        # contract: quorum 0 over an all-dead alive row, so they never
+        # read as quorum-lost (degraded_slots / the SLO shed signal
+        # would otherwise see every spare slot as permanently degraded
+        # and shed a healthy cluster). A split's apply re-pushes these
+        # tables, promoting the child slot to its topic's real quorum.
+        quorum = np.zeros((cfg.partitions,), np.int32)
+        for t in self.topics:
+            q = t.replication_factor // 2 + 1
+            for a in t.assignments:
+                slot = self._slot_for(t.name, a.partition_id)
+                if slot is None:
+                    continue
+                quorum[slot] = q
+                leader_slot = -1
+                if a.leader is not None and a.leader in a.replicas:
+                    leader_slot = a.replicas.index(a.leader)
+                self.dataplane.set_leader(slot, leader_slot, a.term)
+        self.dataplane.set_quorum(quorum)
+        self.dataplane.set_alive(self._alive_mask())
+
+    def _resync_slots(self, came_alive: np.ndarray) -> None:
+        """Group newly-alive (partition, replica-slot) cells by (leader
+        slot, dst slot) and issue batched resyncs. Partitions that are
+        leaderless at this point are picked up by the periodic
+        `plan_repairs` pass once they elect (a slot that comes alive while
+        leaderless lags the eventual leader by log_end, which is exactly
+        what plan_repairs keys on)."""
+        pairs: dict[tuple[int, int], list[int]] = {}
+        for key, slot in list(self.slot_map.items()) + list(
+                self.dyn_slots.items()):
+            assign = self.assignment_of(key)
+            if assign is None or assign.leader is None:
+                continue
+            if assign.leader not in assign.replicas:
+                continue
+            src = assign.replicas.index(assign.leader)
+            for r in range(self.dataplane.cfg.replicas):
+                if came_alive[slot, r] and r != src:
+                    pairs.setdefault((src, r), []).append(slot)
+        for (src, dst), slots in pairs.items():
+            self.dataplane.resync(src, dst, slots)
+
+    def plan_repairs(
+        self, log_ends: Optional[np.ndarray] = None
+    ) -> dict[tuple[int, int], list[int]]:
+        """Controller lag repair: alive replica slots whose log end trails
+        their partition leader's, grouped into batched (src, dst) resyncs.
+        Run periodically from the controller duty — this is the documented
+        'lag repair' pass, and it covers the cases the event-driven
+        `_resync_slots` cannot: slots that came alive while the partition
+        was leaderless, and followers that missed rounds committed by a
+        quorum that excluded them. Safe because atomic ballot-before-write
+        rounds guarantee a lagging replica holds a strict prefix of the
+        leader's log (never diverged), so a full-slot copy only moves it
+        forward. `log_ends` lets the duty loop share one [R, P] device
+        snapshot between this and plan_elections per tick."""
+        with self.lock:
+            if self.dataplane is None:
+                return {}
+            if log_ends is None:
+                log_ends = self.dataplane.log_ends()  # [R, P]
+            R = self.dataplane.cfg.replicas
+            live = set(self.live)
+            pairs: dict[tuple[int, int], list[int]] = {}
+            for t in self.topics:
+                for a in t.assignments:
+                    slot = self._slot_for(t.name, a.partition_id)
+                    if slot is None or a.leader is None or a.leader not in live:
+                        continue
+                    if a.leader not in a.replicas:
+                        continue
+                    src = a.replicas.index(a.leader)
+                    if src >= R:
+                        continue
+                    src_end = int(log_ends[src, slot])
+                    for r, b in enumerate(a.replicas[:R]):
+                        if r == src or b not in live:
+                            continue
+                        if int(log_ends[r, slot]) < src_end:
+                            pairs.setdefault((src, r), []).append(slot)
+            return pairs
+
+    # -------------------------------------------- dataplane attach/detach
+
+    def attach_dataplane(self, dataplane: DataPlane) -> None:
+        """Bind a (newly booted) device program and push the current
+        replicated control state into its tables — the takeover half of
+        controller failover (broker/server.py _takeover_duty)."""
+        with self.lock:
+            self.dataplane = dataplane
+            if self.topics:
+                self._push_control_tables()
+
+    def detach_dataplane(self) -> Optional[DataPlane]:
+        """Unbind the device program (controller fencing); returns it."""
+        with self.lock:
+            dp, self.dataplane = self.dataplane, None
+            return dp
+
+    # ------------------------------------------------------------- queries
+
+    def current_controller(self) -> int:
+        with self.lock:
+            return self.controller_broker
+
+    def current_epoch(self) -> int:
+        with self.lock:
+            return self.controller_epoch
+
+    def current_standbys(self) -> tuple[int, ...]:
+        with self.lock:
+            return self.standbys
+
+    def current_stripe_map(self) -> tuple[int, ...]:
+        """The replicated stripe→member assignment (empty when no
+        standby ever joined, or in replication='full' deployments —
+        the map is derived from the standby set either way)."""
+        with self.lock:
+            return self.stripe_holders
+
+    def live_brokers(self) -> list[int]:
+        """The replicated liveness view (locked copy) — the striped
+        plane's below-k refusal keys on holders that are both set
+        members AND live."""
+        with self.lock:
+            return list(self.live)
+
+    def follower_lease(self, broker_id: int) -> Optional[int]:
+        """The epoch this broker's follower-read lease was granted
+        under, or None. Valid only when it equals current_epoch() — the
+        caller re-checks BOTH per answered read (server.py)."""
+        with self.lock:
+            return self.follower_leases.get(int(broker_id))
+
+    def current_follower_leases(self) -> dict[int, int]:
+        """Locked copy of the lease table (metadata advertisement +
+        admin.stats)."""
+        with self.lock:
+            return dict(self.follower_leases)
+
+    def get_topics(self) -> list[Topic]:
+        with self.lock:
+            return list(self.topics)
+
+    def assignment_of(self, key: GroupKey) -> Optional[PartitionAssignment]:
+        topic, pid = key
+        for t in self.topics:
+            if t.name == topic:
+                return t.assignment_for(pid)
+        return None
+
+    def leader_of(self, key: GroupKey) -> Optional[int]:
+        with self.lock:
+            a = self.assignment_of(key)
+            return a.leader if a else None
+
+    def slot_of(self, key: GroupKey) -> Optional[int]:
+        with self.lock:
+            return self._slot_for(key[0], key[1])
+
+    def replica_slot(self, key: GroupKey, broker_id: int) -> Optional[int]:
+        """This broker's replica-slot index within the partition's set."""
+        with self.lock:
+            a = self.assignment_of(key)
+            if a is None or broker_id not in a.replicas:
+                return None
+            return a.replicas.index(broker_id)
+
+    def generation_of(self, key: GroupKey) -> Optional[int]:
+        """Current reconfiguration generation of one partition (None =
+        unknown partition) — what request-stamped `pgen` fences against."""
+        with self.lock:
+            a = self.assignment_of(key)
+            return a.generation if a else None
+
+    def route_key(self, topic: str, key_hash: int) -> Optional[int]:
+        """The NON-RETIRED partition owning `key_hash`'s range slice
+        (None when the topic is unknown). During a handoff the child
+        already owns the migrated slice — routing truth moves at split
+        begin; the parent's dual-write forward covers stale senders."""
+        with self.lock:
+            for t in self.topics:
+                if t.name != topic:
+                    continue
+                for a in t.assignments:
+                    if a.state != "retired" and a.owns_key(int(key_hash)):
+                        return a.partition_id
+            return None
+
+    def current_handoffs(self) -> dict[GroupKey, dict]:
+        """Locked copy of the open handoff windows (the controller's
+        reconfig duty drives each to cutover)."""
+        with self.lock:
+            return {k: dict(h) for k, h in self.handoffs.items()}
+
+    def merge_candidates(self) -> list[tuple[str, int, int]]:
+        """(topic, parent, child) triples currently mergeable: active
+        split children whose range is still adjacent to their parent's
+        and whose parent has no open handoff."""
+        with self.lock:
+            out = []
+            for t in self.topics:
+                for a in t.assignments:
+                    if a.origin < 0 or a.state != "active":
+                        continue
+                    if (t.name, a.origin) in self.handoffs:
+                        continue
+                    p = t.assignment_for(a.origin)
+                    if (p is not None and p.state == "active"
+                            and p.range_hi == a.range_lo):
+                        out.append((t.name, a.origin, a.partition_id))
+            return out
+
+    def spare_slot_count(self) -> int:
+        with self.lock:
+            return self.config.engine.partitions - len(
+                self._used_slots_locked()
+            )
+
+    def mapped_slots(self) -> set[int]:
+        """Every engine slot the topic table currently maps (static
+        config slots + dynamic split children) — what the follower
+        plane prunes its per-slot serve state against."""
+        with self.lock:
+            return self._used_slots_locked()
+
+    def reconfig_stats(self) -> dict:
+        """The admin.stats `reconfig` block's replicated half (the
+        server adds its local forward/fence counters): split/merge
+        topology derived from the topic table, open handoffs, and the
+        spare-slot pool."""
+        with self.lock:
+            children = retired = handoff = 0
+            for t in self.topics:
+                for a in t.assignments:
+                    if a.origin >= 0:
+                        children += 1
+                    if a.state == "retired":
+                        retired += 1
+                    elif a.state == "handoff":
+                        handoff += 1
+            return {
+                "children": children,
+                "retired": retired,
+                "handoff_partitions": handoff,
+                "open_handoffs": [
+                    {"topic": t, "partition": p,
+                     "child": int(h["child"]),
+                     "watermark": int(h["watermark"])}
+                    for (t, p), h in sorted(self.handoffs.items())
+                ],
+                "spare_slots": self.config.engine.partitions - len(
+                    self._used_slots_locked()
+                ),
+            }
+
+    def consumer_slot(self, consumer: str) -> Optional[int]:
+        with self.lock:
+            return self.consumers.get(consumer)
+
+    def next_consumer_slot(self) -> int:
+        """Lowest unused consumer slot (proposals are idempotent: the
+        first registration for a name wins, duplicates are no-ops)."""
+        with self.lock:
+            used = set(self.consumers.values()) | self.dirty_consumer_slots
+            C = self.config.engine.max_consumers
+            for s in range(C):
+                if s not in used:
+                    return s
+            raise ConsumerTableFullError(
+                f"consumer table full ({C} slots in use)"
+            )
+
+    def producer_id(self, name: str) -> Optional[int]:
+        """Replicated pid for a registered producer name (None until the
+        registration op applies locally)."""
+        with self.lock:
+            return self.producers.get(name)
+
+    def producer_sessions(self) -> dict[str, tuple[int, int]]:
+        """name → (pid, seen counter), a locked copy — the reaper
+        duty's working set (BrokerServer._pid_reap_duty)."""
+        with self.lock:
+            return {
+                n: (pid, self.producer_seen.get(n, 0))
+                for n, pid in self.producers.items()
+            }
+
+    def registered_pids(self) -> tuple[set[int], int]:
+        """(currently-registered pids, locally-applied pid counter) —
+        the dedup-table reconciliation set plus its VALIDITY FLOOR: a
+        pid at-or-above the local next_pid was issued by a registration
+        this replica has not applied yet, so its absence from the
+        registry proves nothing and the reconciler must not drop its
+        entries (a freshly registered producer can settle batches on
+        the controller before the controller's own apply catches up)."""
+        with self.lock:
+            return set(self.producers.values()), self.next_pid
+
+    def group_state(self, group: str):
+        """A WIRE-COPY of one group's replicated state (GroupState), or
+        None. Copied so callers never hold a reference the next apply
+        mutates under them."""
+        from ripplemq_tpu_torch.groups.state import GroupState
+
+        with self.lock:
+            st = self.groups.state(group)
+            return None if st is None else GroupState.from_wire(st.to_wire())
+
+    def groups_summary(self) -> dict:
+        with self.lock:
+            return self.groups.summary()
+
+    def empty_groups(self) -> list[str]:
+        """Groups retained with zero members (reap candidates once the
+        retention window lapses — BrokerServer._group_duty)."""
+        with self.lock:
+            return self.groups.empty_groups()
+
+    def dirty_slots(self) -> list[int]:
+        """Recycled consumer slots awaiting their offset reset (the
+        controller's slot-clean duty drains these)."""
+        with self.lock:
+            return sorted(self.dirty_consumer_slots)
+
+    # ------------------------------------------- cluster-leader duty logic
+
+    def plan_assignment(self, alive_brokers: list[int]) -> Optional[dict]:
+        """Called on the metadata leader: if the live set changed (or no
+        assignments exist yet), return a set_topics command to propose —
+        the reference's membership-monitor + assigner path
+        (TopicsRaftServer.java:202-217 → PartitionManager.java:72-109)."""
+        with self.lock:
+            have_assignments = any(t.assignments for t in self.topics)
+            if have_assignments and sorted(alive_brokers) == sorted(self.live):
+                return None
+            base = self.topics if have_assignments else list(self.config.topics)
+            try:
+                new_topics = assign_partitions(
+                    list(self.config.topics), alive_brokers,
+                    previous=base if have_assignments else None,
+                )
+            except ValueError:
+                # Not enough live brokers to meet RF. Keep the old
+                # PLACEMENT — but still advance the LIVE view: leader
+                # elections key on `self.live` (needs_elections/
+                # plan_elections), so freezing it would leave a dead
+                # broker's partitions leaderless forever whenever
+                # RF == cluster size (the surviving quorum can and must
+                # still elect among itself — the reference's JRaft groups
+                # re-elect independently of placement,
+                # PartitionRaftServer.java:83-93).
+                if not have_assignments:
+                    return None
+                return {
+                    "op": OP_SET_TOPICS,
+                    # Placement-only payload (metadata.models.placement_only):
+                    # the (leader, term) surface is OP_SET_LEADER's domain,
+                    # so a proposal snapshot can never carry — and a racing
+                    # apply can never revert — an election's advert.
+                    "topics": topics_to_wire(placement_only(self.topics)),
+                    "live": sorted(alive_brokers),
+                }
+            return {
+                "op": OP_SET_TOPICS,
+                "topics": topics_to_wire(placement_only(new_topics)),
+                "live": sorted(alive_brokers),
+            }
+
+    def plan_controller(self, alive_brokers: list[int]) -> Optional[dict]:
+        """Called on the metadata leader: controller-failover planning.
+
+        Dead controller → promote the lowest-id live STANDBY under a
+        bumped epoch (only set members hold the full committed-round
+        stream — promoting anyone else would lose acked data, so with no
+        live standby the plane stays down until the controller returns,
+        exactly the pre-failover behavior). Live controller → prune dead
+        brokers from the standby set (the controller duty re-adds fresh
+        ones via catch-up). The reference's analogue is JRaft re-electing
+        any partition's leader among surviving replicas
+        (PartitionRaftServer.java:83-93)."""
+        with self.lock:
+            alive = set(alive_brokers)
+            if self.controller_broker in alive:
+                if any(s not in alive for s in self.standbys):
+                    return {
+                        "op": OP_SET_STANDBYS,
+                        "epoch": self.controller_epoch,
+                        "standbys": [s for s in self.standbys if s in alive],
+                    }
+                return None
+            return self._promote_cmd([s for s in self.standbys if s in alive])
+
+    def _promote_cmd(self, cands: list[int]) -> Optional[dict]:
+        """Promotion command shared by dead-controller failover and
+        broken-plane abdication (one handover contract; lock held).
+        Lowest live standby wins under a bumped epoch."""
+        if not cands:
+            return None
+        new = min(cands)
+        return {
+            "op": OP_SET_CONTROLLER,
+            "controller": new,
+            "epoch": self.controller_epoch + 1,
+            "standbys": [s for s in cands if s != new],
+        }
+
+    def plan_abdication(self) -> Optional[dict]:
+        """Called on a controller whose OWN data plane is permanently
+        broken (lockstep mesh break — the broker is alive, so the
+        metadata leader's dead-controller planning never fires): hand
+        controllership to the lowest-id live standby under a bumped
+        epoch. Same safety rule as plan_controller: only standby-set
+        members hold the full committed-round stream; with no live
+        standby the plane stays down (returns None) rather than losing
+        acked data."""
+        with self.lock:
+            if self.controller_broker != self.broker_id:
+                return None
+            return self._promote_cmd([
+                s for s in self.standbys
+                if s in self.live and s != self.broker_id
+            ])
+
+    def plan_standby_add(self, target_count: int) -> Optional[int]:
+        """Called on the controller: pick one live broker to catch up and
+        admit to the standby set (None if the set is at target). The
+        lowest id wins so repeated calls are stable."""
+        with self.lock:
+            if self.controller_broker != self.broker_id:
+                return None
+            live = set(self.live)
+            others = live - {self.broker_id}
+            want = min(target_count, len(others))
+            members_live = [s for s in self.standbys if s in live]
+            if len(members_live) >= want:
+                return None
+            cands = sorted(others - set(self.standbys))
+            return cands[0] if cands else None
+
+    # --------------------------------------------- controller duty logic
+
+    def needs_elections(self) -> bool:
+        """Cheap host-only pre-check for the controller duty: would
+        plan_elections actually NOMINATE anyone? plan_elections needs a
+        device log-ends fetch to pick candidates; that fetch holds the
+        device lock for a full host-device round trip, so the duty loop
+        must not pay it every tick — neither on a healthy cluster nor
+        for a partition that is leaderless but CANNOT elect (quorum of
+        its replicas dead) or is inside its election debounce window.
+        Mirrors plan_elections' own gates (leaderless, quorum of live
+        replicas, debounce elapsed) without stamping the debounce
+        table."""
+        with self.lock:
+            if self.dataplane is None:
+                return False
+            live = set(self.live)
+            R = self.dataplane.cfg.replicas
+            now = time.monotonic()
+            # Device-term-skew wedge probe (host-only, no device fetch):
+            # a slot whose rounds ALL fail to commit despite a live
+            # leader is election-worthy — an election bumped the device
+            # current_term but its OP_SET_LEADER advert never stuck
+            # (proposal lost mid-chaos, or reverted by a stale
+            # OP_SET_TOPICS snapshot), so every round dispatches a stale
+            # term and is refused forever. plan_elections confirms the
+            # skew against the device terms before nominating.
+            stalled = set(self.dataplane.stalled_slots())
+            for t in self.topics:
+                quorum = t.replication_factor // 2 + 1
+                for a in t.assignments:
+                    slot = self._slot_for(t.name, a.partition_id)
+                    if a.leader is not None and a.leader in live:
+                        if slot is None:
+                            continue
+                        if slot not in stalled:
+                            # Clear STALE debounce stamps HERE, where
+                            # healthy leadership is observed every duty
+                            # tick — not only in plan_elections, which no
+                            # longer runs on healthy clusters (this
+                            # pre-check exists to skip it). A stale stamp
+                            # from a previous outage would otherwise void
+                            # the debounce window for the next one. A
+                            # FRESH stamp survives: the
+                            # term-aligned stall probe consumes the
+                            # streak (reset_stall) and re-stamps, so
+                            # popping its stamp on the next tick would
+                            # let a streak that re-builds faster than
+                            # the election window re-pay the
+                            # plan_elections device fetch per rebuild
+                            # instead of at most once per window.
+                            since = self._leaderless_since.get(slot)
+                            if (since is not None
+                                    and now - since
+                                    >= self.config.election_timeout_s):
+                                self._leaderless_since.pop(slot, None)
+                            continue
+                        # Live leader but stalled: actionable (same
+                        # debounce + quorum gates as leaderless below).
+                    if slot is None:
+                        continue
+                    since = self._leaderless_since.get(slot)
+                    if (since is not None
+                            and now - since < self.config.election_timeout_s):
+                        continue  # debouncing: not actionable yet
+                    alive_n = sum(
+                        1 for r, b in enumerate(a.replicas)
+                        if b in live and r < R
+                    )
+                    if alive_n >= quorum:
+                        return True
+            return False
+
+    def plan_elections(
+        self, log_ends: Optional[np.ndarray] = None
+    ) -> tuple[dict[int, tuple[int, int]], dict[int, dict]]:
+        """Controller: find partitions whose leader is unknown or dead and
+        pick candidates (the alive replica with the longest log — vote_step
+        still enforces log-up-to-dateness on device). Returns
+        (candidates for DataPlane.elect, slot → set_leader command draft).
+        """
+        with self.lock:
+            if self.dataplane is None:
+                return {}, {}
+            if log_ends is None:
+                log_ends = self.dataplane.log_ends()      # [R, P]
+            device_terms = self.dataplane.current_terms() # [P]
+            stalled = set(self.dataplane.stalled_slots())
+            live = set(self.live)
+            now = time.monotonic()
+            cands: dict[int, tuple[int, int]] = {}
+            drafts: dict[int, dict] = {}
+            for t in self.topics:
+                for a in t.assignments:
+                    slot = self._slot_for(t.name, a.partition_id)
+                    if slot is None:
+                        continue
+                    skew = False
+                    if a.leader is not None and a.leader in live:
+                        # Device-term-skew wedge (see needs_elections):
+                        # a live leader whose slot is stalled AND whose
+                        # device current_term ran ahead of the
+                        # advertised term can never commit again.
+                        # Anything else live-and-leading is healthy:
+                        # clear the debounce stamp and move on.
+                        if slot not in stalled:
+                            self._leaderless_since.pop(slot, None)
+                            continue
+                        if int(device_terms[slot]) <= a.term:
+                            # Stalled but term-aligned: an engine-quorum
+                            # outage elections cannot help. The probe
+                            # CONSUMES the stall evidence (reset_stall)
+                            # — a streak frozen by traffic stopping
+                            # right after the outage would otherwise
+                            # keep this device fetch firing at the
+                            # election timeout forever — and re-stamps
+                            # so a streak that re-builds faster than the
+                            # timeout still re-checks at most once per
+                            # window; the healthy branch above clears
+                            # the stamp once commits resume.
+                            self.dataplane.reset_stall(slot)
+                            self._leaderless_since[slot] = now
+                            continue
+                        skew = True
+                    since = self._leaderless_since.setdefault(slot, now)
+                    if now - since < self.config.election_timeout_s:
+                        continue  # debounce (see __init__)
+                    self._leaderless_since[slot] = now  # space retries too
+                    if skew:
+                        # Heal WITHOUT a new vote: the device already
+                        # granted a term the table never learned (the
+                        # OP_SET_LEADER advert was lost mid-chaos or
+                        # skipped as stale). A re-VOTE would bump the
+                        # device term again and — under load, where the
+                        # advert's raft round-trip outlasts the election
+                        # debounce — race its own advert forever (the
+                        # observed runaway: device term 165 vs table 75).
+                        # Appends ack at `inp.term >= current_term`, so
+                        # re-advertising the SAME leader at the device's
+                        # max granted term is all commit needs; the
+                        # device state never moves, so lost re-adverts
+                        # retry idempotently until one lands. No cands
+                        # entry: the duty proposes vote-less drafts
+                        # directly.
+                        drafts[slot] = {
+                            "op": OP_SET_LEADER,
+                            "topic": t.name,
+                            "partition": a.partition_id,
+                            "leader": a.leader,
+                            "term": int(device_terms[slot]),
+                        }
+                        continue
+                    alive_replicas = [
+                        (r, b)
+                        for r, b in enumerate(a.replicas)
+                        if b in live and r < self.dataplane.cfg.replicas
+                    ]
+                    if len(alive_replicas) < t.replication_factor // 2 + 1:
+                        continue  # no quorum: stay leaderless
+                    # Longest log wins (vote_step still enforces
+                    # up-to-dateness on device). Ties prefer the replica
+                    # hosted on the CONTROLLER broker: every append
+                    # executes on the controller's device program anyway,
+                    # so leadership elsewhere just buys each produce an
+                    # extra broker-to-broker forwarding hop (measured as
+                    # the e2e throughput cap — follower processes spend
+                    # seconds per ack wave on codec work). Failover keeps
+                    # this honest: a new controller wins the ties only
+                    # where its log matches the longest.
+                    r_best, b_best = max(
+                        alive_replicas,
+                        key=lambda rb: (
+                            int(log_ends[rb[0], slot]),
+                            rb[1] == self.controller_broker,
+                            -rb[0],
+                        ),
+                    )
+                    new_term = max(a.term, int(device_terms[slot])) + 1
+                    cands[slot] = (r_best, new_term)
+                    drafts[slot] = {
+                        "op": OP_SET_LEADER,
+                        "topic": t.name,
+                        "partition": a.partition_id,
+                        "leader": b_best,
+                        "term": new_term,
+                    }
+            return cands, drafts

@@ -1,19 +1,770 @@
-"""Committed-round replication to standby brokers (PyTorch port).
+"""Committed-round replication: controller → standby set, with fencing.
 
-Twin of `ripplemq_tpu/broker/replication.py`. Ported so far: only
-`FencedError`, the refusal the DataPlane's settle pipeline latches on
-(a deposed controller drains its settle window without acking). The
-`RoundReplicator` (per-standby ordered streams, catch-up join, fencing)
-comes with slice D of the port, the broker host runtime (ROADMAP.md).
+The reference tolerates the loss of ANY broker because every broker runs
+its own JRaft groups with their own durable logs and elections move
+leadership wherever replicas survive (reference:
+mq-broker/src/main/java/metadata/raft/PartitionRaftServer.java:83-93).
+In the TPU design the whole partition data plane is ONE device program
+driven by one controller broker, so that fault-tolerance property must be
+rebuilt around the program: this module chain-replicates the controller's
+committed-round record stream — the exact (rec_type, slot, base, payload)
+frames the segment store persists (storage/segment.py REC_APPEND /
+REC_OFFSETS) — to a *standby set* recorded in the replicated metadata
+(PartitionManager: controller broker + controller epoch + standby list).
+
+Protocol invariants:
+
+- **Settle-after-ack.** The DataPlane resolver calls `replicate()`
+  BEFORE local persistence and BEFORE settling producer futures;
+  `replicate()` blocks until every broker in the current standby set
+  acked the round (an empty set refuses once members ever existed — no
+  durable copy, no ack). Hence every *settled* append exists on every
+  standby — promoting any set member loses no acked entry (zero
+  committed-entry loss) — and the local store only ever holds
+  standby-acked records (recovery cannot resurrect a history the
+  standbys never saw).
+- **Epoch fencing.** Every `repl.rounds` RPC carries the controller
+  epoch. A standby whose replicated metadata knows a newer epoch rejects
+  with `stale_epoch`; the deposed controller's rounds then fail with
+  FencedError (⊂ NotCommittedError), producers retry, and the metadata
+  routes them to the new controller. The sender also fences locally the
+  moment its own metadata shows another controller.
+- **Ordered per-standby stream.** Each standby has one sender thread
+  with a FIFO queue, so records arrive in commit order (duplicates are
+  harmless: replay is later-record-wins per slot, dataplane.replay_records).
+- **Catch-up join.** A broker enters the standby set only after
+  receiving the controller's full store prefix: the sender is switched
+  to *buffering* (live rounds hold in a side buffer), the store is
+  scanned into catch-up batches on the primary queue, then the buffer
+  flushes behind them. Any record the scan missed (including a torn
+  concurrent tail) was persisted after buffering began, so its live copy
+  is buffered — order and completeness both hold; only then is the
+  OP_SET_STANDBYS membership proposed.
+
+Twin of `ripplemq_tpu/broker/replication.py` (PyTorch port): the same
+code, importing only the port's modules, so both packages behave alike
+step for step.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeoutError
+from typing import Callable, Optional
+
 from ripplemq_tpu_torch.broker.dataplane import NotCommittedError
+from ripplemq_tpu_torch.obs.lockwitness import make_lock
+from ripplemq_tpu_torch.obs.spans import ctx_from_wire
+from ripplemq_tpu_torch.utils.logs import get_logger
+from ripplemq_tpu_torch.wire.transport import RpcError, Transport
+
+log = get_logger("replication")
 
 
 class FencedError(NotCommittedError):
     """This controller's epoch is stale: a newer controller exists."""
 
 
-__all__ = ["FencedError"]
+class ReplicationError(NotCommittedError):
+    """A standby stream died under a round (sender stopped while its
+    target was still a set member): the round MUST NOT settle — acking
+    without the member's copy would break the zero-loss invariant."""
+
+
+_CATCHUP_BATCH_RECORDS = 256
+_CATCHUP_BATCH_BYTES = 1 << 20
+
+# Sender group-commit caps: one repl.rounds RPC carries the sender's
+# whole queued backlog up to these bounds (well under the 64 MB frame
+# cap). Each queued round pays one sequential RPC otherwise, and under
+# load the per-RPC latency — not bandwidth — becomes the replication
+# stream's capacity (measured: the settle pipeline queuing behind
+# ~10 rounds/s/sender while each RPC idled in standby scheduling).
+_GROUP_COMMIT_BYTES = 8 << 20
+_GROUP_COMMIT_ROUNDS = 128
+
+
+class ReplicationTicket:
+    """One round's in-flight replication: the per-member ack futures of a
+    `RoundReplicator.begin()` plus the begin timestamp the ack-timeout
+    counts from. Opaque to callers — pass it back to `wait()`."""
+
+    __slots__ = ("records", "senders", "futs", "start")
+
+    def __init__(self, records: list, senders: dict, futs: dict,
+                 start: float) -> None:
+        self.records = records
+        self.senders = senders
+        self.futs = futs
+        self.start = start
+
+
+class _Sender(threading.Thread):
+    """Ordered record stream to one standby broker."""
+
+    def __init__(self, rep: "RoundReplicator", broker_id: int) -> None:
+        super().__init__(daemon=True, name=f"repl-sender-{broker_id}")
+        self.broker_id = broker_id
+        self._rep = rep
+        # Witness-named mutex; the Condition ALIASES it (one lock, two
+        # handles) — the static graph models the alias the same way.
+        self._lock = make_lock("_Sender._lock")
+        self._cond = threading.Condition(self._lock)
+        # Entries are (records, fut, tctxs) — tctxs the wire-form trace
+        # contexts of the round's sampled produces (None when untraced),
+        # stamped onto the frame so standby apply spans join the trace.
+        self._queue: list[tuple[list, Future, Optional[list]]] = []
+        self._buffer: Optional[list] = None
+        self._stopped = False
+        self.unreachable = False  # consecutive send failures observed
+
+    # -- enqueue (any thread) --
+
+    def enqueue(self, records: list, tctxs: Optional[list] = None) -> Future:
+        """Live round: behind the catch-up stream while buffering."""
+        fut: Future = Future()
+        with self._cond:
+            if self._stopped:
+                fut.set_exception(ReplicationError("sender stopped"))
+                return fut
+            if self._buffer is not None:
+                self._buffer.append((records, fut, tctxs))
+            else:
+                self._queue.append((records, fut, tctxs))
+                self._cond.notify()
+        return fut
+
+    def enqueue_catchup(self, records: list) -> Future:
+        """Catch-up batch: primary queue, ahead of buffered live rounds."""
+        fut: Future = Future()
+        with self._cond:
+            if self._stopped:
+                fut.set_exception(ReplicationError("sender stopped"))
+                return fut
+            self._queue.append((records, fut, None))
+            self._cond.notify()
+        return fut
+
+    def cancel(self, fut: Future) -> bool:
+        """Remove a still-queued entry by its future (a timed-out read
+        barrier must not leave its batch behind: during a partition,
+        refused-and-retried reads would otherwise grow the queue without
+        bound, and a healed standby would have to drain the stale
+        backlog before any real round). Returns False if the entry
+        already left the queue (in flight or done) — those resolve into
+        an abandoned future, which is harmless."""
+        with self._cond:
+            for q in (self._queue, self._buffer if self._buffer is not None
+                      else []):
+                for i, entry in enumerate(q):
+                    if entry[1] is fut:
+                        del q[i]
+                        return True
+        return False
+
+    def begin_buffer(self) -> None:
+        with self._cond:
+            if self._buffer is None:
+                self._buffer = []
+
+    def end_buffer(self) -> None:
+        with self._cond:
+            if self._buffer is not None:
+                self._queue.extend(self._buffer)
+                self._buffer = None
+                self._cond.notify()
+
+    def stop(self) -> None:
+        with self._cond:
+            self._stopped = True
+            leftovers = self._queue + (self._buffer or [])
+            self._queue = []
+            self._buffer = None
+            self._cond.notify()
+        for entry in leftovers:
+            if not entry[1].done():
+                entry[1].set_exception(ReplicationError("sender stopped"))
+
+    # -- send loop --
+
+    def _take_group(self) -> Optional[list]:
+        """Pop one bounded group-commit [(records, fut, tctxs), ...] off
+        the queue (caller holds self._cond)."""
+        if not self._queue:
+            return None
+        group = [self._queue.pop(0)]
+        nbytes = sum(len(r[3]) for r in group[0][0])
+        while (self._queue and len(group) < _GROUP_COMMIT_ROUNDS
+               and nbytes < _GROUP_COMMIT_BYTES):
+            recs = self._queue[0][0]
+            nbytes += sum(len(r[3]) for r in recs)
+            group.append(self._queue.pop(0))
+        return group
+
+    @staticmethod
+    def _settle_group(group: list, result) -> None:
+        for entry in group:
+            f = entry[1]
+            if not f.done():
+                if isinstance(result, BaseException):
+                    f.set_exception(result)
+                else:
+                    f.set_result(result)
+
+    def _send_frame(self, group: list, epoch: int, sseq: int):
+        """Fire one epoch-stamped, stream-sequenced repl.rounds frame;
+        returns a Future of the response dict (pipelined when the
+        transport supports call_async, an already-resolved future
+        otherwise — the in-proc network is synchronous by design)."""
+        records = [r for entry in group for r in entry[0]]
+        req = {
+            "type": "repl.rounds",
+            "epoch": epoch,
+            "sender": self._rep.sender_id,
+            "sseq": sseq,
+            "records": [[t, s, b, p] for t, s, b, p in records],
+        }
+        tctxs = [t for entry in group for t in (entry[2] or ())]
+        if tctxs:
+            # Trace contexts of the frame's sampled produces: the standby
+            # records its repl.apply span under these (server
+            # _handle_repl_rounds), closing the cross-process edge the
+            # assembler's skew estimate keys on.
+            req["tctx"] = tctxs
+        if self._rep.floors_fn is not None and records:
+            # Piggyback the per-slot settled floor (+ gap map) for the
+            # slots this frame touches: the standby publishes it as its
+            # follower-read horizon. Stamped at send time, so it is
+            # conservative — it can only name rounds whose acks already
+            # landed cluster-wide, never this frame's own rows.
+            try:
+                req["floors"] = self._rep.floors_fn(
+                    sorted({r[1] for r in records})
+                )
+            except Exception:
+                pass  # floor stamp is best-effort; the frame still ships
+        call_async = getattr(self._rep.client, "call_async", None)
+        if call_async is not None:
+            return call_async(self._rep.addr_of(self.broker_id), req)
+        fut: Future = Future()
+        try:
+            fut.set_result(self._rep.client.call(
+                self._rep.addr_of(self.broker_id), req,
+                timeout=self._rep.rpc_timeout_s,
+            ))
+        except Exception as e:
+            fut.set_exception(e)
+        return fut
+
+    def run(self) -> None:
+        """PIPELINED group-commit stream: up to `pipeline_depth`
+        epoch-stamped frames in flight, each carrying a per-stream
+        sequence number (`sseq`) the standby's stream gate applies in
+        order (BrokerServer._handle_repl_rounds). This is what kills
+        the synchronous sender's head-of-line blocking: one slow ack used to
+        cap the stream at one group per round trip — now later groups
+        are already on the wire (and applied, in sseq order) while the
+        oldest ack is outstanding; acks still release in order here.
+        On ANY failure the whole in-flight window rewinds: un-acked
+        groups requeue at the head in order and re-send under their
+        ORIGINAL sseqs — a frame that did apply before the failure is
+        re-applied harmlessly (duplicate records are later-record-wins
+        at replay; the gate acks `sseq < expected` after re-applying)."""
+        backoff = 0.05
+        failures = 0
+        next_sseq = 0
+        # In-flight window entries: [group, sseq, rpc_fut, t_frame].
+        inflight: list = []
+
+        def fail_inflight(result) -> None:
+            while inflight:
+                self._settle_group(inflight.pop(0)[0], result)
+
+        def rewind_inflight(reset_to=None) -> None:
+            """Requeue every un-acked in-flight group (head, in order)
+            for a re-send under its original sseq — or under the
+            standby's advertised `expected` counter (`reset_to`, from a
+            repl_seq_gap refusal): a RESTARTED standby's gate restarts
+            at zero, and re-sending under the old numbering would gap
+            forever. Renumbering is safe — frame content never depends
+            on its sseq."""
+            nonlocal next_sseq
+            if not inflight:
+                return
+            next_sseq = (int(reset_to) if reset_to is not None
+                         else inflight[0][1])
+            with self._cond:
+                self._queue[0:0] = [
+                    pair for entry in inflight for pair in entry[0]
+                ]
+            inflight.clear()
+
+        while True:
+            depth = max(1, int(self._rep.pipeline_depth))
+            with self._cond:
+                while (not self._queue and not inflight
+                       and not self._stopped):
+                    self._cond.wait(timeout=0.2)
+                if self._stopped:
+                    break
+                groups = []
+                while len(inflight) + len(groups) < depth:
+                    g = self._take_group()
+                    if g is None:
+                        break
+                    groups.append(g)
+            # -- fire new frames (top up the window) --
+            fenced = False
+            for group in groups:
+                # Epoch is stamped ONCE per delivery attempt from the
+                # ACTIVE view. It must never be re-read after a
+                # deposition: a deposed sender re-stamping its stale
+                # backlog with the NEW epoch would walk it straight
+                # through the standby's fence (the seeded chaos soak
+                # caught that as an acked produce the promoted
+                # controller had never seen). The double-check closes
+                # the check/stamp race.
+                if fenced or not self._rep.active():
+                    fenced = True
+                    self._settle_group(
+                        group,
+                        FencedError("controller deposed (local metadata)"),
+                    )
+                    continue
+                epoch = self._rep.epoch_fn()
+                if not self._rep.active():
+                    fenced = True
+                    self._settle_group(
+                        group,
+                        FencedError("controller deposed (local metadata)"),
+                    )
+                    continue
+                t_frame = (self._rep._clock()
+                           if self._rep._h_frame_us is not None else 0.0)
+                inflight.append(
+                    [group, next_sseq,
+                     self._send_frame(group, epoch, next_sseq), t_frame,
+                     time.monotonic()]
+                )
+                next_sseq += 1
+            if not inflight:
+                continue
+            # -- wait on the OLDEST in-flight frame --
+            group, sseq, rpc_fut, t_frame, t_sent = inflight[0]
+            try:
+                resp = rpc_fut.result(timeout=0.1)
+            except (TimeoutError, FuturesTimeoutError):
+                if self._stopped:
+                    fail_inflight(ReplicationError("sender stopped"))
+                    return
+                if not self._rep.active():
+                    fail_inflight(
+                        FencedError("controller deposed (local metadata)")
+                    )
+                    continue
+                if time.monotonic() - t_sent > self._rep.rpc_timeout_s:
+                    # call_async carries no transport deadline: a hung
+                    # (connected but unresponsive) standby must hit the
+                    # same rpc-timeout retry path the synchronous
+                    # sender had — rewind and re-send; the duplicate
+                    # delivery, if the first one eventually lands, is
+                    # absorbed like any other (gate dup path).
+                    failures += 1
+                    if self._rep._c_retries is not None:
+                        self._rep._c_retries.inc()
+                    if failures >= 3:
+                        self.unreachable = True
+                    rewind_inflight()
+                    time.sleep(min(0.5, backoff * failures))
+                continue
+            except RpcError:
+                failures += 1
+                if self._rep._c_retries is not None:
+                    self._rep._c_retries.inc()
+                if failures >= 3:
+                    self.unreachable = True
+                rewind_inflight()
+                time.sleep(min(0.5, backoff * failures))
+                continue
+            if resp.get("ok"):
+                inflight.pop(0)
+                failures = 0
+                self.unreachable = False
+                records = [r for entry in group for r in entry[0]]
+                # Group-commit telemetry: rounds per acked frame is the
+                # batching factor group commit buys; the frame RPC
+                # time is the raw standby round trip the settle stage's
+                # standby_ack_us overlaps away (and pipelining overlaps
+                # across frames too).
+                if self._rep._h_group is not None:
+                    self._rep._h_group.observe_int(len(group))
+                    self._rep._h_frame_us.observe(
+                        self._rep._clock() - t_frame
+                    )
+                    self._rep._c_records.inc(len(records))
+                    self._rep._c_frames.inc()
+                    self._rep._c_bytes.inc(sum(len(r[3]) for r in records))
+                log.debug("standby %d acked %d records (%d rounds, sseq "
+                          "%d)", self.broker_id, len(records), len(group),
+                          sseq)
+                self._settle_group(group, True)
+                continue
+            if resp.get("error") == "stale_epoch":
+                fail_inflight(FencedError("standby reports newer epoch"))
+                continue
+            if resp.get("error") == "store_quarantined":
+                # The standby quarantined its store (reopened empty)
+                # and is refusing acks under its stale pre-death
+                # membership. Flag it suspect NOW — waiting out the
+                # full ack timeout just stalls every round in the
+                # window — so the duty loop prunes it from the set;
+                # the ordinary standby-add then re-admits it through
+                # the full catch-up stream, after which it acks again.
+                with self._rep._lock:
+                    self._rep._suspects.add(self.broker_id)
+            # Transient standby-side refusal (active_controller until
+            # its fence duty runs, a repl_seq_gap after wire loss):
+            # rewind the window and retry in order.
+            failures += 1
+            reset = None
+            if str(resp.get("error", "")).startswith("repl_seq_gap"):
+                reset = resp.get("expected")
+            rewind_inflight(reset)
+            time.sleep(min(0.5, backoff * failures))
+        # Stopped: nothing in flight may settle (stop() already failed
+        # the queued backlog; in-flight rounds must fail the same way).
+        fail_inflight(ReplicationError("sender stopped"))
+
+
+class RoundReplicator:
+    """Controller-side fan-out of the committed-round stream.
+
+    `members_fn` returns the CURRENT replicated standby set (acks
+    required); `epoch_fn` the current controller epoch; `active_fn`
+    whether this broker still is the controller (local fencing).
+    """
+
+    def __init__(
+        self,
+        client: Transport,
+        addr_of: Callable[[int], str],
+        epoch_fn: Callable[[], int],
+        members_fn: Callable[[], tuple],
+        active_fn: Callable[[], bool],
+        rpc_timeout_s: float = 3.0,
+        ack_timeout_s: float = 5.0,
+        metrics=None,
+        sender_id: int = -1,
+        pipeline_depth: int = 1,
+        floors_fn: Optional[Callable[[list], list]] = None,
+    ) -> None:
+        self.client = client
+        self.addr_of = addr_of
+        self.epoch_fn = epoch_fn
+        self.members_fn = members_fn
+        self.active = active_fn
+        self.rpc_timeout_s = rpc_timeout_s
+        self.ack_timeout_s = ack_timeout_s
+        # Settled-floor stamp (follower reads): called with the sorted
+        # slot list of each outgoing frame, returns the per-slot
+        # [[slot, floor, gaps], ...] the standby publishes as its local
+        # serve horizon (DataPlane.settle_floors). None → frames carry
+        # no floor and standbys never advance one off this stream —
+        # the wire stays compatible in both directions.
+        self.floors_fn = floors_fn
+        # Stream identity + window for the pipelined sender (_Sender.run):
+        # (sender_id, epoch) keys the standby's per-stream sequence gate,
+        # pipeline_depth bounds the frames in flight per stream.
+        self.sender_id = int(sender_id)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        # Sender-side group-commit telemetry (obs.Metrics, usually the
+        # owning broker's registry). None or a disabled registry → the
+        # handles stay None and the send loop skips the clock reads too.
+        if metrics is not None and getattr(metrics, "enabled", True):
+            self._h_group = metrics.histogram("repl.group_rounds")
+            self._h_frame_us = metrics.histogram("repl.frame_us")
+            self._c_records = metrics.counter("repl.records")
+            self._c_frames = metrics.counter("repl.frames")
+            # Replication payload bytes ACKED across all standby
+            # streams — the numerator of the bench's
+            # repl_bytes_per_acked_byte accounting (full-copy mode
+            # counts every member's copy; the striped twin counts
+            # stripe frame bytes under stripes.bytes).
+            self._c_bytes = metrics.counter("repl.bytes")
+            self._c_retries = metrics.counter("repl.send_retries")
+            self._clock = metrics.clock
+        else:
+            self._h_group = self._h_frame_us = None
+            self._c_records = self._c_frames = self._c_retries = None
+            self._c_bytes = None
+            self._clock = time.perf_counter
+        # Causal-tracing hook (obs/spans.py): the owning broker sets
+        # this to its SpanRing when trace sampling is configured; begin()
+        # then records one repl.send span per (sampled produce, standby)
+        # covering queue time + frame round trip — the sender-side half
+        # of the replication edge whose standby half is repl.apply.
+        self.spans = None
+        self._lock = make_lock("RoundReplicator._lock")
+        self._senders: dict[int, _Sender] = {}
+        self._joining: set[int] = set()
+        self._suspects: set[int] = set()
+        # Latched once members_fn() was ever non-empty: from then on an
+        # EMPTY set refuses to settle (see replicate) instead of acking
+        # rounds with no durable copy. Genesis — before the first
+        # standby joins — keeps the bootstrap behavior.
+        self._had_members = False
+        self._stopped = False
+
+    # -- sender management --
+
+    def _sender(self, bid: int) -> _Sender:
+        with self._lock:
+            if self._stopped:
+                # A racing caller (the read barrier fires from arbitrary
+                # RPC threads) must not resurrect sender threads after
+                # stop() — they would never be stopped again and leak.
+                raise ReplicationError("replicator stopped")
+            s = self._senders.get(bid)
+            if s is None:
+                s = _Sender(self, bid)
+                self._senders[bid] = s
+                s.start()
+            return s
+
+    def sync_members(self) -> None:
+        """Drop senders for brokers neither in the set nor joining."""
+        members = set(self.members_fn())
+        with self._lock:
+            drop = [
+                bid for bid in self._senders
+                if bid not in members and bid not in self._joining
+            ]
+            dropped = [self._senders.pop(bid) for bid in drop]
+        for s in dropped:
+            s.stop()
+
+    def is_joining(self, bid: int) -> bool:
+        with self._lock:
+            return bid in self._joining
+
+    def take_suspects(self) -> set[int]:
+        """Standbys that stalled a round past ack_timeout (the server's
+        duty loop proposes their removal from the set)."""
+        with self._lock:
+            out = self._suspects
+            self._suspects = set()
+            return out
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+            senders = list(self._senders.values())
+            self._senders.clear()
+        for s in senders:
+            s.stop()
+
+    # -- hot path (DataPlane resolver/settle threads) --
+
+    def begin(self, records: list,
+              tctxs: Optional[list] = None) -> "ReplicationTicket":
+        """Enqueue one round's records on every current-set member's
+        ordered stream WITHOUT waiting for acks. Returns the ticket
+        `wait()` later blocks on — the two halves of `replicate()`, split
+        so the DataPlane's pipelined settle can keep a window of rounds
+        streaming to the standbys while the device advances (acks are
+        then released strictly in round order by `wait`ing the tickets
+        in order; see broker/dataplane.py settle pipeline). Raises
+        FencedError if deposed, ReplicationError on the empty-set
+        refusal — both BEFORE anything is enqueued. `tctxs` carries the
+        wire-form trace contexts of the round's sampled produces (see
+        obs/spans.py): stamped onto the outgoing frames and recorded as
+        sender-side repl.send spans that end when the member acks."""
+        if not self.active():
+            raise FencedError("controller deposed (local metadata)")
+        targets = set(self.members_fn())
+        if targets:
+            self._had_members = True
+        elif self._had_members:
+            # The set was non-empty once and is now EMPTY: settling would
+            # ack a round with zero durable copies beyond this broker —
+            # an assertion the next promotion instantly falsifies. The
+            # seeded chaos soak caught this as an acked loss: a liveness
+            # flap pruned the set to [] while a promotion was already in
+            # flight, and the old controller settled rounds the promoted
+            # plane had never seen ("round settled ... members now []").
+            # Refusing is the graceful-degradation contract: producers
+            # get a retryable refusal until a standby rejoins (or
+            # until genesis-style no-failover deployments, which never
+            # grow a member, keep the old behavior).
+            raise ReplicationError(
+                "standby set empty (failover armed): no durable copy to "
+                "settle against"
+            )
+        with self._lock:
+            targets |= self._joining
+        senders = {bid: self._sender(bid) for bid in targets}
+        futs = {bid: s.enqueue(records, tctxs)
+                for bid, s in senders.items()}
+        if tctxs and self.spans is not None:
+            for raw in tctxs:
+                ctx = ctx_from_wire(raw)
+                if ctx is None:
+                    continue
+                for bid, fut in futs.items():
+                    sp = self.spans.span("repl.send", ctx, {"standby": bid})
+                    fut.add_done_callback(lambda _f, s=sp: s.end())
+        return ReplicationTicket(records, senders, futs, time.monotonic())
+
+    def replicate(self, records: list,
+                  timeout_s: Optional[float] = None) -> None:
+        """Block until every current-set member acked this round. Raises
+        FencedError if deposed. A member removed from the set mid-wait is
+        skipped; an unreachable member is flagged suspect (duty loop
+        proposes removal) while the wait continues. `timeout_s` bounds
+        the whole wait (a settled round MUST have every member's ack, so
+        round settling passes None; the linearizable-read barrier passes
+        a bound, since an unconfirmable read should refuse, not hang)."""
+        self.wait(self.begin(records), timeout_s=timeout_s)
+
+    def wait(self, ticket: "ReplicationTicket",
+             timeout_s: Optional[float] = None) -> None:
+        """Second half of replicate(): block until every member acked the
+        ticket's round, with the full waiver/fence discipline (see
+        replicate). The ack deadline counts from begin() — queue time on
+        a stalled stream charges the suspect timer exactly as before."""
+        records = ticket.records
+        senders = ticket.senders
+        futs = ticket.futs
+        start = ticket.start
+        acked: list[int] = []
+        waived: list[int] = []
+        for bid, fut in futs.items():
+            suspected = False
+            while True:
+                if bid not in self.members_fn():
+                    # Distinguish WHY the member left the set before
+                    # waiving its ack. A same-epoch prune (suspect
+                    # removal, committed through metadata raft) is safe:
+                    # any future promotion plans from the pruned set. But
+                    # an OP_SET_CONTROLLER apply removes the PROMOTED
+                    # broker from the standby list while deposing us —
+                    # settling without ITS ack hands an acked round to a
+                    # controller that never stored it (the seeded chaos
+                    # soak caught this as an acked-produce loss: probe
+                    # acked 3 ms after the deposition applied, absent
+                    # from the promoted plane's replay). Deposed ⇒ fence.
+                    if not self.active():
+                        raise FencedError(
+                            "controller deposed (local metadata)"
+                        )
+                    waived.append(bid)
+                    break  # joiner or same-epoch prune: no ack needed
+                if (timeout_s is not None
+                        and time.monotonic() - start > timeout_s):
+                    # Withdraw every still-queued entry of this timed-out
+                    # round before refusing (see _Sender.cancel).
+                    for b, f in futs.items():
+                        if not f.done():
+                            senders[b].cancel(f)
+                    raise ReplicationError(
+                        f"standby {bid} unconfirmed after {timeout_s}s"
+                    )
+                try:
+                    fut.result(timeout=0.05)
+                    acked.append(bid)
+                    break
+                # concurrent.futures.TimeoutError is a distinct class from
+                # the builtin before Python 3.11 — catching only the
+                # builtin let ack-poll timeouts escape as round failures.
+                except (TimeoutError, FuturesTimeoutError):
+                    if not self.active():
+                        raise FencedError("controller deposed (local metadata)")
+                    if (
+                        not suspected
+                        and time.monotonic() - start > self.ack_timeout_s
+                    ):
+                        suspected = True
+                        log.warning(
+                            "standby %d not acking after %.1fs; flagged "
+                            "suspect", bid, self.ack_timeout_s,
+                        )
+                        with self._lock:
+                            self._suspects.add(bid)
+                except FencedError:
+                    raise
+                except ReplicationError:
+                    if bid in self.members_fn():
+                        # Sender died (replicator stopping) while its
+                        # target is still a member: without this member's
+                        # ack the round may exist nowhere but here — fail
+                        # it. (This is exactly the shutdown race: a
+                        # partitioned controller being stopped must not
+                        # settle its stranded in-flight rounds.)
+                        # Withdraw the round's still-queued copies from
+                        # the OTHER senders first (same as the timeout
+                        # path): the caller records this round as a
+                        # settled GAP — nacked, invisible to reads — and
+                        # a copy still delivered to a standby store would
+                        # needlessly resurrect it at the next promotion
+                        # (harmless under later-record-wins replay, but a
+                        # nack should suppress what it can).
+                        for b, f in futs.items():
+                            if not f.done():
+                                senders[b].cancel(f)
+                        raise
+                    # Same deposition guard as the member-removed branch
+                    # above: the fence duty STOPS the replicator in the
+                    # same breath as the OP_SET_CONTROLLER apply that
+                    # shrinks the member set — "sender stopped" plus
+                    # "member left" here usually MEANS deposed, and a
+                    # waiver would settle a round the promoted
+                    # controller never stored (chaos-soak-caught acked
+                    # loss, sibling of the branch above).
+                    if not self.active():
+                        raise FencedError(
+                            "controller deposed (local metadata)"
+                        ) from None
+                    waived.append(bid)
+                    break  # member left the set: ack no longer required
+
+        if records:
+            log.debug(
+                "round settled: %d records; acked by %s, waived %s, "
+                "members now %s",
+                len(records), acked, waived, sorted(self.members_fn()),
+            )
+
+    # -- catch-up (controller duty worker thread) --
+
+    def catchup(self, bid: int, store, timeout_s: float = 600.0) -> None:
+        """Stream the full local store prefix to a joining broker; returns
+        when the standby holds it. Caller proposes set membership after,
+        then calls finish_join()."""
+        s = self._sender(bid)
+        with self._lock:
+            self._joining.add(bid)
+        s.begin_buffer()
+        last_fut: Optional[Future] = None
+        try:
+            batch: list = []
+            nbytes = 0
+            for rec in store.scan():
+                batch.append(rec)
+                nbytes += len(rec[3])
+                if (
+                    len(batch) >= _CATCHUP_BATCH_RECORDS
+                    or nbytes >= _CATCHUP_BATCH_BYTES
+                ):
+                    last_fut = s.enqueue_catchup(batch)
+                    batch, nbytes = [], 0
+            if batch or last_fut is None:
+                last_fut = s.enqueue_catchup(batch)
+        finally:
+            s.end_buffer()
+        last_fut.result(timeout=timeout_s)
+
+    def finish_join(self, bid: int) -> None:
+        with self._lock:
+            self._joining.discard(bid)

@@ -1,0 +1,700 @@
+"""Cluster configuration: YAML → immutable config value.
+
+Same role as the reference's SnakeYAML singleton loader (reference:
+mq-broker/src/main/java/config/ClusterConfigManager.java:47-63,
+ClusterConfig.java:11-120): the full static broker roster plus the static
+topic list. Deviations: no mutable singleton (the config is a value passed
+down explicitly), and engine shape parameters (slots, slot bytes, batch
+sizes) are configurable here because in the TPU design they are compile
+-time shapes (see ripplemq_tpu_torch.core.config.EngineConfig).
+
+Twin of `ripplemq_tpu/metadata/cluster_config.py` (PyTorch port): the
+same code, importing only the port's modules, so both packages behave
+alike step for step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ripplemq_tpu_torch.core.config import EngineConfig
+from ripplemq_tpu_torch.metadata.models import BrokerInfo, Topic
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    brokers: tuple[BrokerInfo, ...]
+    topics: tuple[Topic, ...]
+    # Engine shapes (data-plane program; one program per cluster).
+    engine: EngineConfig = EngineConfig()
+    # Timings, in seconds. Defaults mirror the reference's constants where
+    # one exists (election: PartitionRaftServer.java:85 / TopicsRaftServer
+    # .java:131; membership poll: TopicsRaftServer.java:216; client
+    # metadata refresh: ProducerClientImpl.java:18).
+    # How long a partition stays leaderless before the controller ballots
+    # it, and the spacing between failed ballots (PartitionManager.
+    # plan_elections debounce).
+    election_timeout_s: float = 1.0
+    # Metadata (hostraft) election timeout: randomized in [1x, 2x] as the
+    # node's tick deadline; also sets the liveness horizon.
+    metadata_election_timeout_s: float = 3.0
+    # Cadence of the metadata leader's assignment/controller planning
+    # (BrokerServer._metadata_leader_duty).
+    membership_poll_s: float = 10.0
+    # Consumer-group member session: a member whose heartbeat has not
+    # reached the metadata leader for this long is EVICTED (an
+    # OP_GROUP_LEAVE proposal — the group rebalances under a bumped
+    # generation and the member's later commits are fenced). Clients
+    # should heartbeat at a small fraction of this (GroupConsumer
+    # defaults to 0.5 s beats).
+    group_session_timeout_s: float = 3.0
+    # How long an EMPTY group is retained before the metadata leader
+    # reaps it (OP_GROUP_DELETE) and recycles its shared offset slot.
+    # Emptiness can be transient — a rebalance storm or a partition
+    # cutting every member off the heartbeat path — and reaping too
+    # eagerly resets the group's generation and offsets, re-delivering
+    # the whole log to the re-formed group (the randomized storm soak
+    # caught exactly that). Members rejoining within the window resume
+    # seamlessly.
+    group_retention_s: float = 60.0
+    # --- Control-plane wave batching (BrokerServer._batch_duty) ---------
+    # The metadata leader drains its intake queue of membership/pid
+    # commands (group.join / group.leave / producer.register) into ONE
+    # OP_BATCH proposal per wave: at most every meta_batch_s, or as soon
+    # as meta_batch_max commands are queued. The apply expands the wave
+    # in order but defers each touched group's rebalance to the END of
+    # the wave, so N joins to one group cost one generation bump and one
+    # assignment recompute instead of N. 0 disables coalescing — every
+    # command proposes individually (the pre-wave shape).
+    meta_batch_s: float = 0.05
+    # Wave size cap: a wave is proposed early once this many commands
+    # are queued (bounds both proposal payload and the latency a full
+    # queue would add to the oldest waiter).
+    meta_batch_max: int = 256
+    # Heartbeat relay cadence: each broker aggregates the group
+    # heartbeats of its locally-connected members and forwards ONE
+    # group.beats frame per interval to the metadata leader's liveness
+    # ledger — leader heartbeat RPC load is O(brokers), not O(members).
+    # Per-member stamps are preserved; leader-change grace semantics
+    # are unchanged. Must sit well inside group_session_timeout_s or
+    # relayed beats arrive too late to keep sessions alive.
+    heartbeat_relay_s: float = 0.5
+    metadata_refresh_s: float = 10.0
+    rpc_timeout_s: float = 3.0
+    # The broker that BOOTSTRAPS as the TPU mesh driver (device-program
+    # controller). None → lowest broker id. The reference has no such
+    # role — every JVM broker replicates; here the data plane is a single
+    # SPMD program and the other brokers are serving/metadata frontends
+    # reaching it by RPC. At runtime controllership is a replicated,
+    # epoch-fenced metadata fact that MOVES on controller death
+    # (broker/replication.py): the controller streams its committed
+    # rounds to `standby_count` standby brokers, any of which the
+    # metadata leader can promote.
+    controller_id: int | None = None
+    # How many standby brokers hold a full copy of the committed-round
+    # stream (the data plane survives the loss of the controller plus
+    # standby_count - 1 standbys). 0 disables controller failover.
+    standby_count: int = 2
+    # Replication plane: "full" streams a FULL copy of every committed
+    # round to every standby (R-times bytes); "striped" Reed–Solomon-
+    # encodes each sender group-commit into k+m stripes (stripes/codec:
+    # RS(3,2)) shipped to DISTINCT standbys — durable-copy bytes scale
+    # with (k+m)/k ≈ 1.67× instead of the standby count, the round
+    # settles at any k stripe-acks, and promotion rebuilds the full
+    # stream from any k surviving stripes (stripes/recovery.py).
+    # Committed prefixes are byte-identical across both modes. Striped
+    # pays off from 2 standbys (0.83× full-copy bytes) and approaches
+    # its 0.42× floor at 4 (R=5-equivalent durability).
+    replication: str = "full"
+    # Idempotent-producer pid retention: a pid idle (no registration
+    # refresh reaching the metadata plane) for longer than this is
+    # REAPED by the metadata leader via a replicated op whose apply
+    # re-checks idleness, so a racing refresh always wins. Producers
+    # and broker stamping pids refresh well inside the window
+    # (ProducerClient pid_refresh_s; _producer_pid_duty); a reaped pid
+    # is never reissued (the pid counter is monotone), so a zombie
+    # producer merely loses its dedup window, never its safety. 0
+    # disables reaping (pids then grow forever).
+    pid_retention_s: float = 600.0
+    # Round-store segment rotation threshold (sealed segments are
+    # erasure-coded and their shards distributed to peer brokers).
+    segment_bytes: int = 64 << 20
+    # Size cap for sealed segments on disk: the oldest are GC'd past it
+    # (consumers below the resulting floor jump to the earliest retained
+    # record). None = unlimited — the default, and strictly more than
+    # the reference retains (its partition state is JVM-heap-bounded).
+    store_retention_bytes: int | None = None
+    # Batcher operating point (see the bench's operating_curve for the
+    # measured latency/throughput tradeoff of these knobs; defaults
+    # favour ack latency):
+    # - coalesce_s: how long the step thread gathers a burst before
+    #   dispatching a round (each dispatch costs a host-device launch).
+    # - chain_depth: complete quorum rounds per device launch for deep
+    #   backlogs (lax.scan; amortizes the launch).
+    # - pipeline_depth: outstanding launches before dispatch
+    #   backpressures.
+    coalesce_s: float = 0.002
+    chain_depth: int = 4
+    pipeline_depth: int = 8
+    # Read-side assembly window before each batched device-read dispatch
+    # (DataPlane.read_coalesce_s — the consume-side mirror of
+    # coalesce_s); 0 disables.
+    read_coalesce_s: float = 0.001
+    # Linearizable reads (off by default — the reference serves
+    # leader-local reads with no bound at all,
+    # PartitionStateMachine.java:85-110, and the default here is already
+    # stricter: commit-bounded). When on, every consume first confirms
+    # the controller's epoch through the standby ack stream (an empty
+    # epoch-fenced record batch; broker/server.py _BarrierGate), closing
+    # the one remaining anomaly: a deposed-but-partitioned controller
+    # serving an old-but-committed prefix while a promoted standby
+    # accepts newer writes. Cost: up to one standby-set round trip per
+    # read BATCH (concurrent readers share one barrier; an
+    # unconfirmable read refuses with not_committed instead of serving).
+    linearizable_reads: bool = False
+    # Durability mode for the settle-path persists (controller AND
+    # standby ack path). "async" (default): fsync rides the store's
+    # flusher thread at the flush-interval cadence, so disk lags an ack
+    # by at most one interval — a correlated FULL-CLUSTER crash (power
+    # loss; a SIGKILL alone leaves the page cache intact) can lose that
+    # window of acked rounds, and nothing less can (any surviving quorum
+    # member of a round holds it). "strict": every settled round fsyncs
+    # synchronously before its acks release — zero acked loss even
+    # across a correlated full-cluster crash, at the cost of one fsync
+    # latency on every round's ack path.
+    durability: str = "async"
+    # Telemetry plane (ripplemq_tpu_torch.obs): ON by default — the metrics
+    # registry instruments every host-path stage and admin.metrics /
+    # admin.postmortem serve it. False swaps in no-op metrics and
+    # disables the codec's frame stats — the A/B knob (measured ≤3% e2e
+    # delta, PROFILE.md "telemetry overhead"). The flight recorder
+    # (admin.trace) stays on either way: its per-round cost is a few
+    # hundred ns and its value is being on when nobody planned to need it.
+    obs: bool = True
+    # Causal tracing (obs/spans.py): every `trace_sample_n`-th trace-id
+    # residue of a client produce/consume is stamped with a trace
+    # context and every layer it touches records spans into per-process
+    # rings (admin.spans + obs/assemble.py join them into critical-path
+    # trees). 0 (default) disables sampling — no context rides the
+    # wire and every emit site short-circuits on `ctx is None` (the
+    # zero-overhead contract). Requires obs=True when enabled: the
+    # span rings share the metrics plane's monotonic clock domain so
+    # the engine's stage timestamps can be attributed verbatim.
+    trace_sample_n: int = 0
+    # Per-process span-ring capacity (records, not bytes). Sized like
+    # the flight recorder: large enough that one sampled produce's
+    # spans survive until the next admin.spans page, small enough to
+    # stay cache-resident.
+    span_ring_slots: int = 2048
+    # Runtime lock witness (obs/lockwitness.py): when true, every
+    # host-path lock this process creates is a recording wrapper that
+    # captures per-thread acquisition orderings, cross-checkable
+    # against the static lock-order graph (analysis/lock_graph.py).
+    # OFF by default — the factories hand out raw threading locks with
+    # zero overhead; debug/chaos harnesses turn it on (run_chaos
+    # lock_witness=True, profiles/chaos_soak.py --witness).
+    lock_witness: bool = False
+    # Multi-core host plane (parallel/hostplane.py): worker subprocesses
+    # per broker, each owning the disjoint partition-group slice
+    # `slot % host_workers` of the data-plane HOST path (submit
+    # validation, pid/seq stamping, payload packing, settled-mirror
+    # consume serving). 1 = no subprocess plane (everything in-process,
+    # the pre-PR-12 shape). The device program and replication plane
+    # are unaffected: committed prefixes are byte-identical across
+    # host_workers values.
+    host_workers: int = 1
+    # Shared-memory ring capacity per direction per worker (the
+    # dispatcher<->worker frame rings; parallel/shmring.py). Frames are
+    # capped at half the ring.
+    host_ring_bytes: int = 4 << 20
+    # Standby replication stream pipelining: how many epoch-stamped,
+    # per-stream-sequence-numbered repl.rounds frames one sender keeps
+    # in flight before waiting on the oldest ack (broker/replication.py
+    # _Sender). 1 = one synchronous call per group; the
+    # standby applies frames strictly in sequence order either way
+    # (BrokerServer repl-stream gate), so a slow ack no longer caps the
+    # stream at one group per round trip.
+    repl_pipeline_depth: int = 4
+    # RPC worker pool per broker. A produce/engine.append handler BLOCKS
+    # its worker until the round commits, so this caps a broker's
+    # in-flight appends — size it to the offered concurrency (threads
+    # are cheap; they spend their life waiting on round futures). The
+    # reference has no analogue: Bolt dispatches on its own pool and
+    # every request blocks a JRaft apply anyway.
+    rpc_workers: int = 16
+    # --- SLO autopilot (ripplemq_tpu_torch/slo/) -------------------------------
+    # Closed-loop overload control: the produce-ack p99 target in
+    # MILLISECONDS. > 0 starts one control thread per broker
+    # (slo/controller.py) that AIMD-adjusts read_coalesce_s, chain
+    # depth, and the settle window's soft bound against this target,
+    # runs the load-shedding state machine, and records every decision
+    # as slo_* flight-recorder events. 0 (default) disables the loop —
+    # the knobs stay at their static configured values and only the
+    # per-tenant quota buckets (slo_quotas) remain active. Requires
+    # obs=True when enabled (the loop reads the metrics registry).
+    slo_p99_ack_ms: float = 0.0
+    # Control-loop cadence: one measure/adjust/shed decision per tick.
+    slo_tick_s: float = 0.5
+    # The chaos checker's recovery bound: after the LAST heal of a
+    # faulted run, the system must be back in SLO (shedding off, p99
+    # within target) within this window — run_chaos(slo=True) treats a
+    # miss as a first-class violation alongside exactly-once.
+    slo_recover_s: float = 30.0
+    # AIMD rails: the controller never drives a knob outside
+    # [min, max] — the deployment's static values remain legal points
+    # inside them. Chain depth moves on a power-of-two ladder (each
+    # distinct depth is its own compiled device program; the ladder
+    # bounds runtime compiles to log2(max) programs). The settle
+    # window's soft bound lives in [slo_settle_window_min, the
+    # configured engine settle_window].
+    slo_read_coalesce_min_s: float = 0.0
+    slo_read_coalesce_max_s: float = 0.02
+    slo_chain_depth_min: int = 1
+    slo_chain_depth_max: int = 16
+    slo_settle_window_min: int = 1
+    # Measured-prior rails (bench.py operating_curve): path to a JSON
+    # file of AIMD rail overrides ({"read_coalesce_min_s": ...,
+    # "read_coalesce_max_s": ..., "chain_depth_min": ...,
+    # "chain_depth_max": ..., "settle_window_min": ...} — any subset).
+    # Loaded once at controller construction, the overrides replace the
+    # static rails above, so the controller's FIRST tick is already
+    # clamped to the measured operating envelope instead of walking in
+    # from conservative defaults. "" (default) keeps the static rails.
+    slo_rails_file: str = ""
+    # Shed threshold: settle-window occupancy at or above this fraction
+    # of the EFFECTIVE window is shed evidence; the noisy signals
+    # engage on 2 evidencing ticks within the last 5 (quorum
+    # degradation and stall streaks engage immediately; see
+    # slo/controller.py for the full machine).
+    slo_shed_occupancy: float = 0.75
+    # --- Follower reads (broker/follower.py) ----------------------------
+    # Serve consumes from standby brokers out of the bytes the
+    # replication stream already shipped them. When true, the metadata
+    # leader grants every current standby an epoch-stamped follower-read
+    # lease (OP_SET_FOLLOWER_LEASES), each standby maintains a per-slot
+    # contiguous-settle floor from the floors riding its replication
+    # stream, and a leased standby answers explicit-offset consumes
+    # STRICTLY BELOW its local floor from its own replicated copy —
+    # refusing anything above it with the retryable `not_settled_here:`
+    # so clients fall back to the leader. Off by default: the consume
+    # plane stays leader-only (the pre-PR-16 shape). Committed prefixes
+    # and ack semantics are unaffected either way.
+    follower_reads: bool = False
+    # Striped replication only: budget for the follower's decoded-page
+    # cache (reconstructed rounds served to N cursors from one
+    # rs_reconstruct; broker/follower.py). Under full-copy replication
+    # the same budget bounds the retained plaintext rounds. Evicted
+    # pages are re-fetched/re-decoded on demand (striped) or refused to
+    # the leader (full).
+    follower_page_cache_bytes: int = 32 << 20
+    # Consume-side SLO twin of slo_p99_ack_ms: the consume-ack p99
+    # target in MILLISECONDS. > 0 makes the SLO controller AIMD-steer
+    # read_coalesce_s against this target alongside the produce loop
+    # (same rails, same slo_adjust events). 0 (default) leaves consume
+    # latency unmanaged. Requires obs=True when enabled.
+    slo_p99_consume_ms: float = 0.0
+    # Per-tenant produce quotas: ((tenant, messages_per_second), ...),
+    # tenant = producer-name prefix before the first "/". A quota is a
+    # per-broker rate CAP (token bucket, one-second burst) and a
+    # PRIORITY CLAIM: while shedding, quota-holding tenants keep their
+    # admission up to their buckets and unquoted (best-effort) traffic
+    # is refused with the retryable `overloaded:` error. YAML:
+    # `slo_quotas: {tenant: rate, ...}`.
+    slo_quotas: tuple = ()
+    # Per-tenant priority tiers for the shed LADDER: ((tenant, tier),
+    # ...), tier in {"high", "low"}. Shedding degrades in steps —
+    # best-effort (unquoted) traffic is refused the moment the shed
+    # machine engages; "low"-tier QUOTA HOLDERS are refused only after
+    # the shed persists (escalation, slo/admission.py); "high"-tier
+    # tenants keep admission up to their buckets through both steps.
+    # Tenants absent from this table default to "high" (the pre-tier
+    # behavior: every quota holder rode out a shed). YAML:
+    # `slo_tenant_tiers: {tenant: high|low, ...}`.
+    slo_tenant_tiers: tuple = ()
+    # --- Elastic partitions (broker/manager.py split/merge) -------------
+    # SLO-driven reconfiguration trigger: when true, the controller
+    # broker's SLO tick history arms an online split of the hottest
+    # partition after `split_evidence_ticks` breach-evidencing ticks,
+    # and proposes the reverse merge after `split_merge_idle_ticks`
+    # consecutive comfortable ticks (hysteresis like the shed machine).
+    # Splits spend SPARE engine slots (engine.partitions beyond the
+    # configured topic total); with none left the proposal no-ops.
+    # False (default): splits/merges happen only via admin.split /
+    # admin.merge.
+    split_auto: bool = False
+    split_evidence_ticks: int = 4
+    split_merge_idle_ticks: int = 64
+    # Handoff bound: a split's dual-write window is closed (cutover
+    # proposed) at the latest this many seconds after the controller's
+    # reconfig duty first sees it, even if the parent's settled floor
+    # has not provably reached the split-begin watermark — a bounded
+    # time-to-rebalance beats an unbounded dual-write window (the
+    # watermark gate is the normal path; the timeout is the escape
+    # hatch a wedged settle pipe would otherwise hold open forever).
+    split_handoff_timeout_s: float = 10.0
+    # Cap on any topic's TOTAL partition count (configured + split
+    # children, retired included). 0 = no cap beyond engine capacity.
+    split_max_partitions: int = 0
+
+    def __post_init__(self) -> None:
+        if self.durability not in ("async", "strict"):
+            raise ValueError(
+                f"durability must be 'async' or 'strict', "
+                f"got {self.durability!r}"
+            )
+        if self.replication not in ("full", "striped"):
+            raise ValueError(
+                f"replication must be 'full' or 'striped', "
+                f"got {self.replication!r}"
+            )
+        if self.pid_retention_s < 0:
+            raise ValueError("pid_retention_s must be >= 0 (0 disables)")
+        if not 1 <= self.host_workers <= 64:
+            raise ValueError(
+                f"host_workers must be in [1, 64], got {self.host_workers}"
+            )
+        if self.host_ring_bytes < (1 << 20):
+            raise ValueError(
+                f"host_ring_bytes={self.host_ring_bytes} below the 1 MiB "
+                f"floor: frames cap at half the ring, and a full "
+                f"max_batch mirror frame (max_batch x slot_bytes rows) "
+                f"must fit or every settled-mirror publish drops"
+            )
+        if self.host_workers > 1:
+            # The invariant the floor message states, checked against
+            # the ACTUAL engine shape: a full-round mirror frame
+            # (max_batch x slot_bytes rows + codec overhead) must fit
+            # the half-ring frame cap, or the worker plane silently
+            # degrades to ring hops that never serve anything.
+            round_bytes = self.engine.max_batch * self.engine.slot_bytes
+            if round_bytes + 4096 > self.host_ring_bytes // 2:
+                raise ValueError(
+                    f"host_ring_bytes={self.host_ring_bytes} cannot carry "
+                    f"one full round's mirror frame (max_batch "
+                    f"{self.engine.max_batch} x slot_bytes "
+                    f"{self.engine.slot_bytes} = {round_bytes} bytes vs "
+                    f"the {self.host_ring_bytes // 2}-byte frame cap) — "
+                    f"raise host_ring_bytes to at least "
+                    f"{2 * (round_bytes + 4096)}"
+                )
+        if self.repl_pipeline_depth < 1:
+            raise ValueError("repl_pipeline_depth must be >= 1")
+        # Shards (~segment_bytes / 3 each) travel in single wire frames
+        # (shard.put / shard.get), which the codec hard-caps at 64 MB —
+        # an oversize segment would make shard distribution fail forever.
+        max_seg = 3 * (48 << 20)
+        if self.segment_bytes > max_seg:
+            raise ValueError(
+                f"segment_bytes={self.segment_bytes} too large: shards "
+                f"must fit a wire frame (max {max_seg})"
+            )
+        if self.segment_bytes < 4096:
+            raise ValueError("segment_bytes must be at least 4096")
+        if (self.store_retention_bytes is not None
+                and self.store_retention_bytes < 2 * self.segment_bytes):
+            raise ValueError(
+                "store_retention_bytes must be at least 2x segment_bytes "
+                "(one sealed + one active segment)"
+            )
+        if self.slo_p99_ack_ms < 0:
+            raise ValueError("slo_p99_ack_ms must be >= 0 (0 disables)")
+        if self.slo_p99_ack_ms > 0 and not self.obs:
+            # The control loop measures the ack p99 off the metrics
+            # registry; with obs=False the registry is no-ops and the
+            # loop would fly blind — refuse at parse time.
+            raise ValueError(
+                "slo_p99_ack_ms > 0 requires obs=True: the SLO "
+                "controller reads the live metrics registry"
+            )
+        if self.trace_sample_n < 0:
+            raise ValueError("trace_sample_n must be >= 0 (0 disables)")
+        if self.trace_sample_n > 0 and not self.obs:
+            # Span rings record against the metrics plane's monotonic
+            # clock domain (the engine stage timestamps are attributed
+            # verbatim); with obs=False those stamps are never taken.
+            raise ValueError(
+                "trace_sample_n > 0 requires obs=True: span attribution "
+                "reuses the metrics plane's stage timestamps"
+            )
+        if self.span_ring_slots < 16:
+            raise ValueError("span_ring_slots must be >= 16")
+        if self.slo_tick_s <= 0:
+            raise ValueError("slo_tick_s must be > 0")
+        if self.slo_recover_s <= 0:
+            raise ValueError("slo_recover_s must be > 0")
+        if not 0.0 <= self.slo_read_coalesce_min_s \
+                <= self.slo_read_coalesce_max_s:
+            raise ValueError(
+                "slo read-coalesce rails must satisfy 0 <= min <= max"
+            )
+        if not 1 <= self.slo_chain_depth_min <= self.slo_chain_depth_max:
+            raise ValueError(
+                "slo chain-depth rails must satisfy 1 <= min <= max"
+            )
+        if self.slo_settle_window_min < 1:
+            raise ValueError("slo_settle_window_min must be >= 1")
+        if not 0.0 < self.slo_shed_occupancy <= 1.0:
+            raise ValueError("slo_shed_occupancy must be in (0, 1]")
+        for entry in self.slo_quotas:
+            tenant, rate = entry
+            if not isinstance(tenant, str) or not tenant:
+                raise ValueError(
+                    f"slo_quotas tenant must be a non-empty string, "
+                    f"got {tenant!r}"
+                )
+            if float(rate) <= 0:
+                raise ValueError(
+                    f"slo_quotas rate for {tenant!r} must be > 0, "
+                    f"got {rate!r}"
+                )
+        tiers_seen = set()
+        for entry in self.slo_tenant_tiers:
+            tenant, tier = entry
+            if not isinstance(tenant, str) or not tenant:
+                raise ValueError(
+                    f"slo_tenant_tiers tenant must be a non-empty string, "
+                    f"got {tenant!r}"
+                )
+            if tier not in ("high", "low"):
+                raise ValueError(
+                    f"slo_tenant_tiers tier for {tenant!r} must be "
+                    f"'high' or 'low', got {tier!r}"
+                )
+            tiers_seen.add(tenant)
+        if self.meta_batch_s < 0:
+            raise ValueError("meta_batch_s must be >= 0 (0 disables waves)")
+        if self.meta_batch_max < 1:
+            raise ValueError("meta_batch_max must be >= 1")
+        if self.heartbeat_relay_s <= 0:
+            raise ValueError("heartbeat_relay_s must be > 0")
+        if self.heartbeat_relay_s >= self.group_session_timeout_s:
+            raise ValueError(
+                f"heartbeat_relay_s={self.heartbeat_relay_s} must be well "
+                f"inside group_session_timeout_s="
+                f"{self.group_session_timeout_s}: a relay interval at or "
+                f"past the session timeout delivers every beat too late "
+                f"and the leader evicts healthy members"
+            )
+        if self.split_evidence_ticks < 1:
+            raise ValueError("split_evidence_ticks must be >= 1")
+        if self.split_merge_idle_ticks < 1:
+            raise ValueError("split_merge_idle_ticks must be >= 1")
+        if self.split_handoff_timeout_s <= 0:
+            raise ValueError("split_handoff_timeout_s must be > 0")
+        if self.split_max_partitions < 0:
+            raise ValueError(
+                "split_max_partitions must be >= 0 (0 = engine capacity)"
+            )
+        if self.split_auto and self.slo_p99_ack_ms <= 0:
+            raise ValueError(
+                "split_auto requires slo_p99_ack_ms > 0: the split "
+                "trigger arms off the SLO controller's tick history"
+            )
+        if self.follower_page_cache_bytes < (1 << 20):
+            raise ValueError(
+                f"follower_page_cache_bytes="
+                f"{self.follower_page_cache_bytes} below the 1 MiB floor: "
+                f"the cache must hold at least one decoded round or every "
+                f"follower read thrashes fetch/reconstruct"
+            )
+        if self.follower_reads and self.standby_count < 1:
+            raise ValueError(
+                "follower_reads requires standby_count >= 1: follower "
+                "reads are served from the standbys' replicated copies "
+                "(with no standbys there is nobody to lease)"
+            )
+        if self.slo_p99_consume_ms < 0:
+            raise ValueError("slo_p99_consume_ms must be >= 0 (0 disables)")
+        if self.slo_p99_consume_ms > 0 and not self.obs:
+            raise ValueError(
+                "slo_p99_consume_ms > 0 requires obs=True: the SLO "
+                "controller reads the live metrics registry"
+            )
+        if self.linearizable_reads and self.standby_count < 1:
+            # The read barrier proves the controller's epoch through the
+            # standby ack stream; with no standbys there is no stream to
+            # prove through (and no failover, so the anomaly the flag
+            # closes cannot occur). The barrier would silently no-op
+            # (BrokerServer._fire_read_barrier) — make the contract
+            # explicit at parse time instead.
+            raise ValueError(
+                "linearizable_reads requires standby_count >= 1: the read "
+                "barrier confirms the controller epoch through the standby "
+                "ack stream (with standby_count=0 there is no controller "
+                "failover and commit-bounded reads are already linearizable)"
+            )
+
+    @property
+    def controller(self) -> int:
+        if self.controller_id is not None:
+            return self.controller_id
+        return min(b.broker_id for b in self.brokers)
+
+    def broker(self, broker_id: int) -> BrokerInfo:
+        for b in self.brokers:
+            if b.broker_id == broker_id:
+                return b
+        raise KeyError(f"unknown broker id {broker_id}")
+
+    def broker_ids(self) -> list[int]:
+        return [b.broker_id for b in self.brokers]
+
+
+def _topic_from_yaml(d: dict) -> Topic:
+    return Topic(
+        name=str(d["name"]),
+        partitions=int(d.get("partitions", 1)),
+        replication_factor=int(
+            d.get("replication_factor", d.get("replicationFactor", 1))
+        ),
+    )
+
+
+def load_cluster_config(path: str) -> ClusterConfig:
+    """Load a cluster config YAML.
+
+    Accepts both this framework's schema and the reference's field names
+    (`hostname`/`replicationFactor` — mq-broker/config/cluster_config.yaml)
+    so existing cluster files carry over.
+    """
+    # Imported here, not at module level: the config is also built from a
+    # dict (`parse_cluster_config`) on hosts that have no PyYAML.
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    return parse_cluster_config(raw)
+
+
+def parse_cluster_config(raw: dict) -> ClusterConfig:
+    brokers = tuple(
+        BrokerInfo(
+            broker_id=int(b["id"] if "id" in b else b["broker_id"]),
+            host=str(b.get("host", b.get("hostname", "localhost"))),
+            port=int(b["port"]),
+        )
+        for b in raw.get("brokers", [])
+    )
+    topics = tuple(_topic_from_yaml(t) for t in raw.get("topics", []))
+    engine_raw = dict(raw.get("engine", {}))
+    total_parts = sum(t.partitions for t in topics)
+    max_rf = max([t.replication_factor for t in topics], default=1)
+    if "partitions" not in engine_raw:
+        # The program's partition axis must hold every configured partition.
+        engine_raw["partitions"] = max(1, total_parts)
+    if "replicas" not in engine_raw:
+        engine_raw["replicas"] = max_rf
+    engine = EngineConfig(**engine_raw)
+    if engine.partitions < total_parts:
+        raise ValueError(
+            f"engine.partitions={engine.partitions} cannot hold the "
+            f"{total_parts} partitions configured across topics"
+        )
+    if engine.replicas < max_rf:
+        raise ValueError(
+            f"engine.replicas={engine.replicas} is below the largest topic "
+            f"replication factor {max_rf}"
+        )
+    timing_keys = (
+        "election_timeout_s",
+        "metadata_election_timeout_s",
+        "membership_poll_s",
+        "metadata_refresh_s",
+        "rpc_timeout_s",
+        "group_session_timeout_s",
+        "group_retention_s",
+        "meta_batch_s",
+        "heartbeat_relay_s",
+    )
+    extra = {k: float(raw[k]) for k in timing_keys if k in raw}
+    if "meta_batch_max" in raw:
+        extra["meta_batch_max"] = int(raw["meta_batch_max"])
+    if raw.get("controller_id") is not None:
+        extra["controller_id"] = int(raw["controller_id"])
+    if "standby_count" in raw:
+        extra["standby_count"] = int(raw["standby_count"])
+    if "rpc_workers" in raw:
+        extra["rpc_workers"] = int(raw["rpc_workers"])
+    if "host_workers" in raw:
+        extra["host_workers"] = int(raw["host_workers"])
+    if "host_ring_bytes" in raw:
+        extra["host_ring_bytes"] = int(raw["host_ring_bytes"])
+    if "repl_pipeline_depth" in raw:
+        extra["repl_pipeline_depth"] = int(raw["repl_pipeline_depth"])
+    if "linearizable_reads" in raw:
+        extra["linearizable_reads"] = bool(raw["linearizable_reads"])
+    if "obs" in raw:
+        extra["obs"] = bool(raw["obs"])
+    if "lock_witness" in raw:
+        extra["lock_witness"] = bool(raw["lock_witness"])
+    if "trace_sample_n" in raw:
+        extra["trace_sample_n"] = int(raw["trace_sample_n"])
+    if "span_ring_slots" in raw:
+        extra["span_ring_slots"] = int(raw["span_ring_slots"])
+    if "slo_rails_file" in raw:
+        extra["slo_rails_file"] = str(raw["slo_rails_file"])
+    if "durability" in raw:
+        extra["durability"] = str(raw["durability"])
+    if "replication" in raw:
+        extra["replication"] = str(raw["replication"])
+    if "pid_retention_s" in raw:
+        extra["pid_retention_s"] = float(raw["pid_retention_s"])
+    if "follower_reads" in raw:
+        extra["follower_reads"] = bool(raw["follower_reads"])
+    if "follower_page_cache_bytes" in raw:
+        extra["follower_page_cache_bytes"] = int(
+            raw["follower_page_cache_bytes"])
+    # SLO autopilot knobs (float rails + the int chain/window rails +
+    # the tenant-quota mapping, normalized to a sorted tuple so the
+    # frozen config stays hashable-by-structure and round-trips the
+    # proc-cluster serialization byte-stably).
+    slo_float_keys = (
+        "slo_p99_ack_ms", "slo_p99_consume_ms", "slo_tick_s",
+        "slo_recover_s",
+        "slo_read_coalesce_min_s", "slo_read_coalesce_max_s",
+        "slo_shed_occupancy",
+    )
+    for k in slo_float_keys:
+        if k in raw:
+            extra[k] = float(raw[k])
+    slo_int_keys = (
+        "slo_chain_depth_min", "slo_chain_depth_max",
+        "slo_settle_window_min",
+    )
+    for k in slo_int_keys:
+        if k in raw:
+            extra[k] = int(raw[k])
+    if "slo_quotas" in raw:
+        q = raw["slo_quotas"] or {}
+        extra["slo_quotas"] = tuple(
+            sorted((str(t), float(r)) for t, r in dict(q).items())
+        )
+    if "slo_tenant_tiers" in raw:
+        tiers = raw["slo_tenant_tiers"] or {}
+        extra["slo_tenant_tiers"] = tuple(
+            sorted((str(t), str(v)) for t, v in dict(tiers).items())
+        )
+    if "split_auto" in raw:
+        extra["split_auto"] = bool(raw["split_auto"])
+    if "split_evidence_ticks" in raw:
+        extra["split_evidence_ticks"] = int(raw["split_evidence_ticks"])
+    if "split_merge_idle_ticks" in raw:
+        extra["split_merge_idle_ticks"] = int(raw["split_merge_idle_ticks"])
+    if "split_handoff_timeout_s" in raw:
+        extra["split_handoff_timeout_s"] = float(
+            raw["split_handoff_timeout_s"])
+    if "split_max_partitions" in raw:
+        extra["split_max_partitions"] = int(raw["split_max_partitions"])
+    if "coalesce_s" in raw:
+        extra["coalesce_s"] = float(raw["coalesce_s"])
+    if "read_coalesce_s" in raw:
+        extra["read_coalesce_s"] = float(raw["read_coalesce_s"])
+    if "chain_depth" in raw:
+        extra["chain_depth"] = int(raw["chain_depth"])
+    if "pipeline_depth" in raw:
+        extra["pipeline_depth"] = int(raw["pipeline_depth"])
+    if "segment_bytes" in raw:
+        extra["segment_bytes"] = int(raw["segment_bytes"])
+    if raw.get("store_retention_bytes") is not None:
+        extra["store_retention_bytes"] = int(raw["store_retention_bytes"])
+    return ClusterConfig(brokers=brokers, topics=topics, engine=engine, **extra)

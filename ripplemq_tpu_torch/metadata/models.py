@@ -1,0 +1,214 @@
+"""Immutable metadata models shared by brokers and clients.
+
+Mirrors the capability of the reference's serializable model classes
+(reference: mq-common/src/main/java/metadata/model/Topic.java:10-69,
+PartitionAssignment.java:13-16) with two deliberate deviations:
+
+- Brokers are identified by integer ids everywhere; network addresses are
+  resolved through `BrokerInfo`, never parsed out of hostnames (fixes the
+  reference's `getPortModifiedAddress` hostname-index hack,
+  mq-common/src/main/java/client/ProducerClientImpl.java:101-107).
+- Partition groups are keyed by the `(topic, partition_id)` tuple, not a
+  `"topic-partition"` string, so topic names containing `-` work (fixes
+  mq-broker/src/main/java/metadata/PartitionManager.java:257-258).
+
+All models are frozen dataclasses with dict round-tripping for the wire.
+
+Twin of `ripplemq_tpu/metadata/models.py` (PyTorch port): the same code,
+importing only the port's modules, so both packages behave alike step
+for step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+GroupKey = tuple[str, int]
+
+# Key-hash routing space: every partition owns a half-open range of
+# [0, RANGE_SPACE). A split carves one range at its midpoint; a merge
+# reabsorbs the child's range into the parent. 2^16 is wide enough that
+# log2(RANGE_SPACE) successive splits of one partition never degenerate
+# to an empty range, and narrow enough that range bounds stay small
+# wire integers.
+RANGE_SPACE = 1 << 16
+
+
+def group_key(topic: str, partition_id: int) -> GroupKey:
+    """Canonical identity of one topic-partition replication group."""
+    return (topic, int(partition_id))
+
+
+def group_name(key: GroupKey) -> str:
+    """Display-only name (reference group naming, PartitionManager.java:121)."""
+    return f"{key[0]}-{key[1]}"
+
+
+@dataclasses.dataclass(frozen=True)
+class BrokerInfo:
+    """One broker's identity + advertised address (reference:
+    mq-broker/src/main/java/config/ClusterConfig.java:70-119)."""
+
+    broker_id: int
+    host: str
+    port: int
+
+    @property
+    def address(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    def to_dict(self) -> dict:
+        return {"broker_id": self.broker_id, "host": self.host, "port": self.port}
+
+    @staticmethod
+    def from_dict(d: dict) -> "BrokerInfo":
+        return BrokerInfo(int(d["broker_id"]), str(d["host"]), int(d["port"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionAssignment:
+    """Replica set + current leader of one partition (reference:
+    mq-common/src/main/java/metadata/model/PartitionAssignment.java:13-16).
+
+    `leader` is a broker id, or None while no leader is known — the same
+    "unset until the partition group elects and advertises" fixpoint as the
+    reference (PartitionManager.java:200-275). `term` is the partition's
+    replication term, bumped on every leader change (the engine stamps log
+    entries with it; the reference leaves terms inside JRaft).
+
+    Elastic-partition surface (all wire-defaulted so pre-split metadata
+    round-trips unchanged):
+
+    - `generation`: the partition's reconfiguration epoch — bumped by
+      every split/merge transition that touches this partition. A
+      request stamped with an older generation draws the typed
+      retryable `stale_partition_gen:` refusal (the groups plane's
+      fencing discipline reapplied to partitions).
+    - `range_lo`/`range_hi`: the half-open key-hash range this
+      partition owns in [0, RANGE_SPACE). A split halves it; the merge
+      reabsorbs it.
+    - `state`: "active" | "handoff" (split begun, cutover pending —
+      the parent dual-writes migrated-range traffic to the child) |
+      "retired" (merged child: produces refused with routing to the
+      parent, log stays readable for draining).
+    - `origin`: the parent partition id for split children (-1 for
+      configured partitions) — what the merge planner pairs on.
+    """
+
+    partition_id: int
+    replicas: tuple[int, ...]          # broker ids, stable order
+    leader: Optional[int] = None
+    term: int = 0
+    generation: int = 0
+    range_lo: int = 0
+    range_hi: int = RANGE_SPACE
+    state: str = "active"
+    origin: int = -1
+
+    def owns_key(self, key_hash: int) -> bool:
+        return self.range_lo <= (key_hash % RANGE_SPACE) < self.range_hi
+
+    def to_dict(self) -> dict:
+        return {
+            "partition_id": self.partition_id,
+            "replicas": list(self.replicas),
+            "leader": self.leader,
+            "term": self.term,
+            "generation": self.generation,
+            "range_lo": self.range_lo,
+            "range_hi": self.range_hi,
+            "state": self.state,
+            "origin": self.origin,
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "PartitionAssignment":
+        leader = d.get("leader")
+        return PartitionAssignment(
+            int(d["partition_id"]),
+            tuple(int(r) for r in d["replicas"]),
+            None if leader is None else int(leader),
+            int(d.get("term", 0)),
+            int(d.get("generation", 0)),
+            int(d.get("range_lo", 0)),
+            int(d.get("range_hi", RANGE_SPACE)),
+            str(d.get("state", "active")),
+            int(d.get("origin", -1)),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Topic:
+    """One topic: partition count, replication factor, assignments
+    (reference: mq-common/src/main/java/metadata/model/Topic.java:10-69)."""
+
+    name: str
+    partitions: int
+    replication_factor: int
+    assignments: tuple[PartitionAssignment, ...] = ()
+
+    def assignment_for(self, partition_id: int) -> Optional[PartitionAssignment]:
+        for a in self.assignments:
+            if a.partition_id == partition_id:
+                return a
+        return None
+
+    def with_assignments(
+        self, assignments: tuple[PartitionAssignment, ...]
+    ) -> "Topic":
+        return dataclasses.replace(self, assignments=assignments)
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "partitions": self.partitions,
+            "replication_factor": self.replication_factor,
+            "assignments": [a.to_dict() for a in self.assignments],
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> "Topic":
+        return Topic(
+            str(d["name"]),
+            int(d["partitions"]),
+            int(d["replication_factor"]),
+            tuple(PartitionAssignment.from_dict(a) for a in d.get("assignments", [])),
+        )
+
+
+def placement_only(topics: list[Topic] | tuple[Topic, ...]) -> list[Topic]:
+    """Strip the (leader, term) surface from every assignment.
+
+    OP_SET_TOPICS owns PLACEMENT only (broker.manager): its payload must
+    never carry a leader/term surface, because the payload is a snapshot
+    taken at proposal time on the metadata leader — an election that
+    applies between snapshot and apply would be reverted by installing
+    it, regressing the advertised term below the device current_term
+    (the permanent write wedge the chaos plane caught). The
+    (leader, term) surface is owned entirely by OP_SET_LEADER; applies
+    source it from the replicated current table. The elastic surface
+    (generation/range/state/origin) is stripped for the same reason —
+    it is owned by the split/merge applies, and a placement snapshot
+    taken before a split must not regress the generation when it
+    lands after."""
+    return [
+        t.with_assignments(tuple(
+            dataclasses.replace(
+                a, leader=None, term=0, generation=0,
+                range_lo=0, range_hi=RANGE_SPACE, state="active",
+                origin=-1,
+            )
+            for a in t.assignments
+        ))
+        for t in topics
+    ]
+
+
+def topics_to_wire(topics: list[Topic] | tuple[Topic, ...]) -> list[dict]:
+    return [t.to_dict() for t in topics]
+
+
+def topics_from_wire(items: list[dict]) -> list[Topic]:
+    return [Topic.from_dict(d) for d in items]

@@ -274,16 +274,27 @@ def _launch(coeffs, shards: torch.Tensor, out=None) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def indexed_device(device) -> torch.device:
+    """`device` as a `torch.device`; a CUDA device without an index gets
+    the current one. A tensor's `.device` always carries its index, and
+    `torch.device("cuda")` equals no indexed device, so devices that are
+    compared with tensors' devices must be indexed."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def default_device(device=None) -> torch.device:
-    """`device`, or CUDA when none is given; raises when none is given and
-    no GPU is present (there is no silent CPU path)."""
+    """`device`, or the current CUDA device when none is given; raises when
+    none is given and no GPU is present (there is no silent CPU path)."""
     if device is not None:
-        return torch.device(device)
+        return indexed_device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available: pass device='cpu' to run the "
             "erasure code on the CPU explicitly")
-    return torch.device("cuda")
+    return indexed_device("cuda")
 
 
 def _as_u8(x, device: torch.device) -> torch.Tensor:

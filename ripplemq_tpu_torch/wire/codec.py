@@ -1,0 +1,474 @@
+"""Self-describing binary codec ("rb-enc") + frame IO.
+
+Replaces the reference's double Java serialization (once at the Bolt RPC
+layer, once inside Raft log entries — reference:
+mq-broker/.../TopicsRequestProcessor.java:56-63) with a single compact
+encoding. Message payload bytes pass through verbatim — no base64, no
+string coercion.
+
+Supported values: None, bool, int (64-bit signed), float, str, bytes,
+list, dict[str, value]. Ints use a varint zig-zag; strings/bytes are
+length-prefixed.
+
+**Bulk-frame fast path.** A list whose elements are all bytes-like — the
+shape of every produce/consume body and replication record batch — is
+encoded as a PACKED VECTOR: one struct-packed u32 length table plus one
+concatenated blob, instead of a tag + varint + copy per element through
+the generic recursion. Decode slices the blob through a single
+memoryview (each element is carved out of the frame body directly — no
+intermediate buffer per element). The generic per-element encoding
+remains fully supported and wire-compatible for every other value (and
+for A/B: `encode(v, bulk=False)` forces it; both forms decode to the
+same value).
+
+Frame format on the socket:
+    uint32 BE total length | uint64 BE request id | encoded body
+Request ids let one connection pipeline many in-flight requests and match
+responses out of order (the reference's Bolt invokeSync allows one
+outstanding request per call — SURVEY.md §3.2 lists "no client
+pipelining" among its throughput bottlenecks).
+
+Twin of `ripplemq_tpu/wire/codec.py` (PyTorch port): the same code,
+importing only the port's modules, so both packages behave alike step
+for step.
+"""
+
+from __future__ import annotations
+
+import socket
+import struct
+import time
+
+_NONE = b"n"
+_TRUE = b"t"
+_FALSE = b"f"
+_INT = b"i"
+_FLOAT = b"d"
+_STR = b"s"
+_BYTES = b"b"
+_LIST = b"l"
+_DICT = b"m"
+_VEC = b"v"  # packed bytes vector: count | u32-LE length table | blob
+
+MAX_FRAME = 64 * 1024 * 1024  # hard cap against corrupt/hostile lengths
+
+_INT64_MIN, _INT64_MAX = -(2**63), 2**63 - 1
+
+_BYTES_LIKE = (bytes, bytearray, memoryview)
+
+
+def _write_varint(out: bytearray, n: int) -> None:
+    # zig-zag then LEB128; the zig-zag is only correct within 64 bits, so
+    # out-of-range ints must error rather than silently corrupt.
+    if not _INT64_MIN <= n <= _INT64_MAX:
+        raise OverflowError(f"int {n} outside the codec's 64-bit range")
+    zz = (n << 1) ^ (n >> 63) if n < 0 else (n << 1)
+    while True:
+        b = zz & 0x7F
+        zz >>= 7
+        if zz:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return
+
+
+def _read_varint(buf: memoryview, pos: int) -> tuple[int, int]:
+    shift = 0
+    zz = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        zz |= (b & 0x7F) << shift
+        if not b & 0x80:
+            break
+        shift += 7
+        if shift > 70:
+            raise ValueError("varint too long")
+    return (zz >> 1) ^ -(zz & 1), pos
+
+
+def _encode_into(out: bytearray, v, bulk: bool) -> None:
+    if v is None:
+        out += _NONE
+    elif v is True:
+        out += _TRUE
+    elif v is False:
+        out += _FALSE
+    elif isinstance(v, int):
+        out += _INT
+        _write_varint(out, v)
+    elif isinstance(v, float):
+        out += _FLOAT
+        out += struct.pack(">d", v)
+    elif isinstance(v, str):
+        raw = v.encode("utf-8")
+        out += _STR
+        _write_varint(out, len(raw))
+        out += raw
+    elif isinstance(v, _BYTES_LIKE):
+        if type(v) is memoryview:
+            v = _flat_view(v)
+        out += _BYTES
+        _write_varint(out, len(v))
+        out += v
+    elif isinstance(v, (list, tuple)):
+        if bulk and v and all(isinstance(x, _BYTES_LIKE) for x in v):
+            _encode_vector(out, v)
+            return
+        out += _LIST
+        _write_varint(out, len(v))
+        for item in v:
+            _encode_into(out, item, bulk)
+    elif isinstance(v, dict):
+        out += _DICT
+        _write_varint(out, len(v))
+        for k, item in v.items():
+            if not isinstance(k, str):
+                raise TypeError(f"dict keys must be str, got {type(k).__name__}")
+            raw = k.encode("utf-8")
+            _write_varint(out, len(raw))
+            out += raw
+            _encode_into(out, item, bulk)
+    else:
+        raise TypeError(f"unencodable type {type(v).__name__}")
+
+
+def _flat_view(v: memoryview):
+    """A strided or multi-dimensional memoryview can't concatenate into
+    the output buffer (and len() would count first-axis items, not
+    bytes) — flatten those through one bytes() copy; the common flat
+    case passes through untouched."""
+    if v.contiguous and v.ndim == 1 and v.itemsize == 1:
+        return v
+    return bytes(v)
+
+
+def _encode_vector(out: bytearray, items) -> None:
+    """list[bytes] as one length table + one concatenated blob. Element
+    lengths are u32 (any element that could overflow one also overflows
+    the 64 MB frame cap long before)."""
+    items = [_flat_view(x) if type(x) is memoryview else x for x in items]
+    out += _VEC
+    _write_varint(out, len(items))
+    out += struct.pack(f"<{len(items)}I", *map(len, items))
+    for x in items:
+        out += x
+
+
+# --- codec telemetry --------------------------------------------------------
+# PROCESS-GLOBAL frame counters (the codec is stateless module functions
+# shared by every transport in the process, so these aggregate across
+# brokers of an in-proc cluster — admin.metrics labels them as such).
+# Plain-int adds, unlocked: same accepted-race contract as obs.metrics
+# counters. `enable_stats(False)` removes even the two clock reads per
+# frame (the ClusterConfig.obs A/B knob reaches here through the broker).
+
+
+class _CodecStats:
+    __slots__ = ("encode_frames", "encode_bytes", "encode_ns",
+                 "decode_frames", "decode_bytes", "decode_ns")
+
+    def __init__(self) -> None:
+        self.encode_frames = 0
+        self.encode_bytes = 0
+        self.encode_ns = 0
+        self.decode_frames = 0
+        self.decode_bytes = 0
+        self.decode_ns = 0
+
+
+_STATS = _CodecStats()
+_STATS_ENABLED = True
+
+
+def enable_stats(on: bool) -> None:
+    global _STATS_ENABLED
+    _STATS_ENABLED = bool(on)
+
+
+def codec_stats() -> dict:
+    """Wire-encodable snapshot (avg_us derived so rates survive the
+    racy-read contract gracefully)."""
+    s = _STATS
+    return {
+        "enabled": _STATS_ENABLED,
+        "encode_frames": s.encode_frames,
+        "encode_bytes": s.encode_bytes,
+        "encode_avg_us": round(s.encode_ns / s.encode_frames / 1e3, 2)
+        if s.encode_frames else 0,
+        "decode_frames": s.decode_frames,
+        "decode_bytes": s.decode_bytes,
+        "decode_avg_us": round(s.decode_ns / s.decode_frames / 1e3, 2)
+        if s.decode_frames else 0,
+    }
+
+
+def encode(v, bulk: bool = True) -> bytes:
+    """Encode one value. `bulk=False` disables the packed-vector fast
+    path (generic per-element encoding for bytes lists) — the legacy
+    wire form, kept for A/B and interop tests; both decode identically."""
+    stats = _STATS_ENABLED
+    t0 = time.perf_counter_ns() if stats else 0
+    out = bytearray()
+    _encode_into(out, v, bulk)
+    raw = bytes(out)
+    if stats:
+        s = _STATS
+        s.encode_ns += time.perf_counter_ns() - t0
+        s.encode_frames += 1
+        s.encode_bytes += len(raw)
+    return raw
+
+
+def encode_dict_with_blob(meta: dict, key: str, blob) -> bytes:
+    """PREFIX bytes such that `prefix + blob` is byte-identical to
+    `encode({**meta, key: bytes(blob)})` with the blob entry LAST.
+
+    The scatter-gather half of the settled-mirror publish path
+    (parallel/hostplane.py): the mirror rows already live in the
+    broker's host mirror, and `encode()` would copy them TWICE more
+    (bytearray append + the final bytes() snapshot) just to prepend a
+    ~40-byte header. With this prefix the caller hands
+    `[prefix, rows]` to ShmRing.push_parts and the payload is touched
+    exactly once — the copy into shared memory. decode() cannot tell
+    the two forms apart (tests/test_shmring.py pins byte parity).
+
+    Stats account the LOGICAL frame (prefix + blob), mirroring
+    encode()."""
+    stats = _STATS_ENABLED
+    t0 = time.perf_counter_ns() if stats else 0
+    if key in meta:
+        raise ValueError(f"blob key {key!r} duplicates a meta key")
+    if type(blob) is memoryview:
+        blob = _flat_view(blob)
+    out = bytearray()
+    out += _DICT
+    _write_varint(out, len(meta) + 1)
+    for k, item in meta.items():
+        if not isinstance(k, str):
+            raise TypeError(f"dict keys must be str, got {type(k).__name__}")
+        raw = k.encode("utf-8")
+        _write_varint(out, len(raw))
+        out += raw
+        _encode_into(out, item, True)
+    raw = key.encode("utf-8")
+    _write_varint(out, len(raw))
+    out += raw
+    out += _BYTES
+    _write_varint(out, len(blob))
+    prefix = bytes(out)
+    if stats:
+        s = _STATS
+        s.encode_ns += time.perf_counter_ns() - t0
+        s.encode_frames += 1
+        s.encode_bytes += len(prefix) + len(blob)
+    return prefix
+
+
+def _read_length(buf: memoryview, pos: int) -> tuple[int, int]:
+    """Decode a length/count prefix, rejecting malformed frames cleanly: a
+    negative decoded length would make buf[pos:pos+n] silently yield an
+    empty slice and move pos BACKWARDS, and an oversized one would loop on
+    garbage — both must be decode errors, not confusing downstream ones."""
+    n, pos = _read_varint(buf, pos)
+    if n < 0:
+        raise ValueError(f"negative length {n} at {pos}")
+    if n > len(buf) - pos:
+        raise ValueError(f"length {n} at {pos} exceeds remaining buffer")
+    return n, pos
+
+
+def _decode_at(buf: memoryview, pos: int):
+    tag = bytes(buf[pos : pos + 1])
+    pos += 1
+    if tag == _NONE:
+        return None, pos
+    if tag == _TRUE:
+        return True, pos
+    if tag == _FALSE:
+        return False, pos
+    if tag == _INT:
+        return _read_varint(buf, pos)
+    if tag == _FLOAT:
+        return struct.unpack(">d", buf[pos : pos + 8])[0], pos + 8
+    if tag == _STR:
+        n, pos = _read_length(buf, pos)
+        return str(buf[pos : pos + n], "utf-8"), pos + n
+    if tag == _BYTES:
+        n, pos = _read_length(buf, pos)
+        return bytes(buf[pos : pos + n]), pos + n
+    if tag == _VEC:
+        n, pos = _read_length(buf, pos)
+        if 4 * n > len(buf) - pos:
+            raise ValueError(f"vector table of {n} at {pos} exceeds buffer")
+        lens = struct.unpack_from(f"<{n}I", buf, pos)
+        pos += 4 * n
+        if sum(lens) > len(buf) - pos:
+            raise ValueError(f"vector blob at {pos} exceeds remaining buffer")
+        items = []
+        for ln in lens:
+            # One bytes() per element straight off the frame's memoryview
+            # — the single unavoidable copy; no intermediate slicing.
+            items.append(bytes(buf[pos : pos + ln]))
+            pos += ln
+        return items, pos
+    if tag == _LIST:
+        n, pos = _read_length(buf, pos)
+        items = []
+        for _ in range(n):
+            item, pos = _decode_at(buf, pos)
+            items.append(item)
+        return items, pos
+    if tag == _DICT:
+        n, pos = _read_length(buf, pos)
+        d = {}
+        for _ in range(n):
+            klen, pos = _read_length(buf, pos)
+            k = str(buf[pos : pos + klen], "utf-8")
+            pos += klen
+            d[k], pos = _decode_at(buf, pos)
+        return d, pos
+    raise ValueError(f"bad tag byte {tag!r} at {pos - 1}")
+
+
+def _skip_at(buf: memoryview, pos: int) -> int:
+    """Advance past one encoded value WITHOUT materializing it — the
+    raw-dispatch peek's workhorse (a packed message vector is skipped
+    by its length table alone; no per-element bytes() copies)."""
+    tag = bytes(buf[pos : pos + 1])
+    pos += 1
+    if tag in (_NONE, _TRUE, _FALSE):
+        return pos
+    if tag == _INT:
+        _, pos = _read_varint(buf, pos)
+        return pos
+    if tag == _FLOAT:
+        return pos + 8
+    if tag in (_STR, _BYTES):
+        n, pos = _read_length(buf, pos)
+        return pos + n
+    if tag == _VEC:
+        n, pos = _read_length(buf, pos)
+        if 4 * n > len(buf) - pos:
+            raise ValueError(f"vector table of {n} at {pos} exceeds buffer")
+        lens = struct.unpack_from(f"<{n}I", buf, pos)
+        pos += 4 * n
+        total = sum(lens)
+        if total > len(buf) - pos:
+            raise ValueError(f"vector blob at {pos} exceeds remaining buffer")
+        return pos + total
+    if tag == _LIST:
+        n, pos = _read_length(buf, pos)
+        for _ in range(n):
+            pos = _skip_at(buf, pos)
+        return pos
+    if tag == _DICT:
+        n, pos = _read_length(buf, pos)
+        for _ in range(n):
+            klen, pos = _read_length(buf, pos)
+            pos += klen
+            pos = _skip_at(buf, pos)
+        return pos
+    raise ValueError(f"bad tag byte {tag!r} at {pos - 1}")
+
+
+def peek_fields(raw, want) -> "dict | None":
+    """Decode ONLY the requested top-level fields of an encoded dict,
+    structurally skipping everything else (no payload materialization).
+
+    The raw-frame dispatch peek (broker/server.py _raw_produce): the
+    accept path needs the routing scalars — type, topic, partition, the
+    idempotence pid/seq — to route an undecoded produce frame to its
+    owning host worker, which then performs the frame's single full
+    decode. Requested fields that hold a packed vector or list decode
+    to their ELEMENT COUNT (int), bytes values to their byte length —
+    enough for admission/size checks without touching the blob.
+
+    Returns None for anything that is not a well-formed encoded dict:
+    the caller falls back to the ordinary decode path, which produces
+    the canonical error."""
+    buf = memoryview(raw)
+    try:
+        if bytes(buf[0:1]) != _DICT:
+            return None
+        n, pos = _read_length(buf, 1)
+        out: dict = {}
+        for _ in range(n):
+            klen, pos = _read_length(buf, pos)
+            k = str(buf[pos : pos + klen], "utf-8")
+            pos += klen
+            if k in want:
+                tag = bytes(buf[pos : pos + 1])
+                if tag in (_VEC, _LIST):
+                    out[k], _ = _read_length(buf, pos + 1)
+                    pos = _skip_at(buf, pos)
+                elif tag == _BYTES:
+                    ln, p2 = _read_length(buf, pos + 1)
+                    out[k] = ln
+                    pos = p2 + ln
+                else:
+                    out[k], pos = _decode_at(buf, pos)
+            else:
+                pos = _skip_at(buf, pos)
+        if pos != len(buf):
+            return None
+        return out
+    except (ValueError, IndexError, struct.error, UnicodeDecodeError):
+        return None
+
+
+def decode(raw: bytes | memoryview):
+    stats = _STATS_ENABLED
+    t0 = time.perf_counter_ns() if stats else 0
+    v, pos = _decode_at(memoryview(raw), 0)
+    if pos != len(raw):
+        raise ValueError(f"trailing bytes after value ({pos} != {len(raw)})")
+    if stats:
+        s = _STATS
+        s.decode_ns += time.perf_counter_ns() - t0
+        s.decode_frames += 1
+        s.decode_bytes += len(raw)
+    return v
+
+
+# --- frame IO ---------------------------------------------------------------
+
+_HEADER = struct.Struct(">IQ")  # length (body only), request id
+
+# Below this, header+body concatenate into one send (the copy is cheaper
+# than a second syscall); at or above, the body is sent as its own
+# sendall so a multi-megabyte replication frame is never copied again
+# just to prepend 12 bytes.
+_SPLIT_SEND_BYTES = 64 * 1024
+
+
+def write_frame(sock: socket.socket, req_id: int, body: bytes) -> None:
+    header = _HEADER.pack(len(body), req_id)
+    if len(body) < _SPLIT_SEND_BYTES:
+        sock.sendall(header + body)
+    else:
+        sock.sendall(header)
+        sock.sendall(body)
+
+
+def _read_exact(sock: socket.socket, n: int) -> bytes:
+    chunks = []
+    got = 0
+    while got < n:
+        chunk = sock.recv(n - got)
+        if not chunk:
+            raise ConnectionError("socket closed mid-frame")
+        chunks.append(chunk)
+        got += len(chunk)
+    return b"".join(chunks)
+
+
+def read_frame(sock: socket.socket) -> tuple[int, bytes]:
+    """Read one frame; returns (request id, body). Raises ConnectionError
+    on EOF, ValueError on an oversized length (corruption guard)."""
+    header = _read_exact(sock, _HEADER.size)
+    length, req_id = _HEADER.unpack(header)
+    if length > MAX_FRAME:
+        raise ValueError(f"frame length {length} exceeds cap {MAX_FRAME}")
+    return req_id, _read_exact(sock, length)

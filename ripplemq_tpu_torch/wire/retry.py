@@ -1,0 +1,270 @@
+"""RetryPolicy: one retry/deadline discipline for every RPC loop.
+
+The seed's clients each grew their own fixed-sleep retry loop
+(producer/consumer: `retries` x `time.sleep(backoff)`, metadata: 3 x 1 s
+— mirroring the reference's MetadataClient.java:34-61), and the broker's
+leader forwarding slept a duty interval between proposals. None of them
+jittered (retry storms synchronize across clients after a partition
+heals), none of them grew the backoff (a dead leader is hammered at a
+fixed cadence), and none of them bounded TOTAL time (an operation could
+burn retries x rpc_timeout before surfacing). MegaScale's fault-recovery
+argument (arXiv:2402.15627, PAPERS.md) is that this discipline is a
+first-class subsystem; this module is its client edge:
+
+- **Jittered exponential backoff**: sleep_k ~ U[(1-jitter)·b_k, b_k]
+  with b_k = min(base · multiplier^k, max). Jitter decorrelates the
+  retry wave a healed partition would otherwise see.
+- **Deadline budget**: an optional per-OPERATION wall-clock bound. The
+  budget covers attempts AND sleeps; the next attempt's RPC timeout is
+  clipped to the remaining budget, and a backoff that cannot fund
+  another attempt ends the loop instead of sleeping uselessly.
+- **Error taxonomy**: `fatal_response_error` classifies application
+  error strings — retrying `bad_request` forever is as wrong as giving
+  up on `not_leader` immediately. Transport errors (`RpcError`,
+  `RpcTimeout`) are always retryable: silence and refusal both mean
+  "try elsewhere / later", never "the request itself is malformed".
+
+The clock, sleep, and rng are injectable so tier-1 tests assert backoff
+growth, jitter bounds, and budget exhaustion without one real sleep.
+
+Twin of `ripplemq_tpu/wire/retry.py` (PyTorch port): the same code,
+importing only the port's modules, so both packages behave alike step
+for step.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import Callable, Optional
+
+# Application error prefixes that no amount of retrying can fix: the
+# request (or the cluster's configuration) is wrong, not the timing.
+# Everything else — not_leader, not_committed, unavailable, stale_epoch,
+# transport errors — is retryable by default: transient by construction.
+# COMPLETENESS is machine-checked: ripplelint's retry_taxonomy rule
+# collects every `{"ok": False, "error": <literal>}` emit site in the
+# library and requires its typed prefix to appear in exactly one of
+# these two tuples (tests/test_lint.py keeps the tree clean), so a new
+# wire error ships with a recorded retry decision instead of falling
+# through to default-retryable unreviewed (the fenced_generation
+# lesson).
+FATAL_ERROR_PREFIXES = (
+    "bad_request",
+    "unknown_partition",
+    "consumer_table_full",
+    # All the unknown-operation refusals ("unknown request ...",
+    # "unknown engine op", "unknown shard op"): the caller speaks a
+    # protocol this broker does not — resending the same frame can
+    # never start succeeding.
+    "unknown request",
+    "unknown engine op",
+    "unknown shard op",
+    # Consumer-group fencing: retrying a stale-generation commit (or a
+    # membership the coordinator evicted) can never succeed — the member
+    # must REJOIN and act under the new generation. The group SDK maps
+    # these to FencedError / a transparent rejoin; a blind retry loop
+    # would just hammer the fence.
+    "fenced_generation",
+    "unknown_member",
+    # Structural deployment refusals (previously unclassified, so
+    # clients burned their full attempt/deadline budget against them):
+    # a broker launched without a data_dir/store never grows one within
+    # an operation's budget, and a shard/snapshot a peer does not hold
+    # will not appear by asking the same peer again — callers that can
+    # try ANOTHER broker do so at their own layer.
+    "no_store",
+    "no_data_dir",
+    "not_found",
+    # Lockstep sequence desync: the worker refuses every replay at the
+    # broken seq until the plane is rebuilt — re-sending is a tight
+    # error loop, not a recovery.
+    "lockstep break",
+    # Elastic-partition admin pre-checks (broker/server.py): the split
+    # or merge is structurally impossible RIGHT NOW for the named
+    # partition(s) — no spare slot, range too narrow, pair no longer
+    # adjacent. Re-proposing the identical op cannot change that; the
+    # operator/nemesis re-plans against fresh topology instead.
+    "split_infeasible",
+    "merge_infeasible",
+)
+
+# Known-retryable prefixes (transient by construction). This tuple is
+# documentation-with-teeth: `fatal_response_error` treats anything
+# non-fatal as retryable either way, but the lint rule above requires
+# every emitted error to be NAMED here or in FATAL_ERROR_PREFIXES, so
+# "retryable" is always a decision someone made, never a fall-through.
+RETRYABLE_ERROR_PREFIXES = (
+    "not_committed",        # commit raced/refused; the round may land
+    "not_leader",           # follow the hint, retry
+    "not_controller",       # controllership moving; metadata will heal
+    "unavailable",          # quorum-degraded fast-fail
+    "stale_epoch",          # fencing during handover; next epoch serves
+    "active_controller",    # replication fence while a handover settles
+    "store_quarantined",    # standby refuses acks until re-admitted
+    "bad_stripe_frame",     # wire corruption: the re-send re-encodes
+    "consumer_registration_failed",  # metadata round raced; re-propose
+    # Host-plane worker died mid-request (parallel/hostplane.py): the
+    # dispatcher already detected it and is respawning the worker —
+    # the retry lands on the fresh generation.
+    "worker_unavailable",
+    # Pipelined replication stream gap (a predecessor frame was lost in
+    # flight): the sender rewinds onto the standby's expected counter
+    # and re-delivers in order.
+    "repl_seq_gap",
+    # SLO admission refusal (slo/admission.py): the broker is shedding
+    # best-effort traffic or the tenant's token bucket is empty —
+    # transient by construction, and the refusal exists precisely so
+    # clients BACK OFF (the jittered exponential backoff is the
+    # admission controller's other half; a fatal classification would
+    # drop acked-workload retries on the floor, a bare retry storm
+    # would defeat the shed).
+    "overloaded",
+    # Follower-read refusal (broker/follower.py): the offset is above
+    # this standby's replicated settled floor (or its lease/cache can't
+    # cover it right now). The row exists — the LEADER serves it — so
+    # the client's routing layer falls back to the leader and retries
+    # there; the floor on this standby also advances with replication,
+    # so "later" genuinely heals it. Never fatal: refusing instead of
+    # serving is exactly the safety contract.
+    "not_settled_here",
+    # Elastic-partition generation fence (broker/server.py): the
+    # sender's routing was resolved under an older partition
+    # generation — a split/merge has re-carved the key ranges since.
+    # RETRYABLE, but not blindly: the refusal carries the topic's
+    # current assignments (`routing`), and the SDKs re-resolve from
+    # that payload before the retry, so the next attempt lands under
+    # the new generation instead of hammering the fence (the
+    # fenced_generation lesson, applied to partitions).
+    "stale_partition_gen",
+    "internal",             # unexpected exception; timing-dependent
+)
+
+
+def fatal_response_error(error: str) -> bool:
+    """True iff an application error string is terminal (never retry)."""
+    return any(error.startswith(p) for p in FATAL_ERROR_PREFIXES)
+
+
+class DeadlineExceeded(Exception):
+    """The operation's deadline budget ran out before it succeeded."""
+
+
+class RetryPolicy:
+    """Immutable retry discipline; `begin()` starts one operation's run.
+
+    Usage (the shape every client loop follows):
+
+        run = policy.begin()
+        while run.attempt():
+            try:
+                resp = transport.call(addr, req, timeout=run.clip(rpc_s))
+            except RpcError as e:
+                run.note(str(e))
+                continue                    # attempt() sleeps the backoff
+            if resp.get("ok"):
+                return resp
+            if fatal_response_error(resp["error"]):
+                raise ...                   # terminal: no retry
+            run.note(resp["error"])
+        raise ...(run.summary())            # attempts or budget exhausted
+    """
+
+    def __init__(
+        self,
+        max_attempts: int = 3,
+        base_backoff_s: float = 0.2,
+        max_backoff_s: float = 2.0,
+        multiplier: float = 2.0,
+        jitter: float = 0.5,
+        deadline_s: Optional[float] = None,
+        clock: Callable[[], float] = time.monotonic,
+        sleep: Callable[[float], None] = time.sleep,
+        rng: Optional[random.Random] = None,
+    ) -> None:
+        if max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        if not 0.0 <= jitter <= 1.0:
+            raise ValueError("jitter must be in [0, 1]")
+        self.max_attempts = int(max_attempts)
+        self.base_backoff_s = float(base_backoff_s)
+        self.max_backoff_s = float(max_backoff_s)
+        self.multiplier = float(multiplier)
+        self.jitter = float(jitter)
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
+        self._clock = clock
+        self._sleep = sleep
+        self._rng = rng if rng is not None else random.Random()
+
+    def backoff_for(self, attempt: int) -> float:
+        """Deterministic (pre-jitter) backoff after attempt `attempt`
+        (1-based): min(base * multiplier^(attempt-1), max)."""
+        b = self.base_backoff_s * (self.multiplier ** max(0, attempt - 1))
+        return min(b, self.max_backoff_s)
+
+    def begin(self) -> "RetryRun":
+        return RetryRun(self)
+
+
+class RetryRun:
+    """One operation's pass through a RetryPolicy (see RetryPolicy doc)."""
+
+    def __init__(self, policy: RetryPolicy) -> None:
+        self._p = policy
+        self.attempts = 0          # attempts STARTED
+        self.last_error: Optional[str] = None
+        self.sleeps: list[float] = []  # jittered backoffs actually slept
+        self._t0 = policy._clock()
+
+    # ------------------------------------------------------------- budget
+
+    def remaining_s(self) -> Optional[float]:
+        """Deadline budget left (None = unbounded)."""
+        if self._p.deadline_s is None:
+            return None
+        return self._p.deadline_s - (self._p._clock() - self._t0)
+
+    def clip(self, timeout_s: float) -> float:
+        """An RPC timeout clipped to the remaining budget, so the last
+        attempt cannot overshoot the operation deadline."""
+        rem = self.remaining_s()
+        if rem is None:
+            return timeout_s
+        return max(0.001, min(timeout_s, rem))
+
+    # ------------------------------------------------------------ control
+
+    def attempt(self) -> bool:
+        """True if another attempt may start; sleeps the jittered backoff
+        between attempts. Returns False once max_attempts have run or the
+        deadline budget is exhausted (including when the budget cannot
+        fund the next backoff + attempt)."""
+        if self.attempts >= self._p.max_attempts:
+            return False
+        rem = self.remaining_s()
+        if rem is not None and rem <= 0:
+            return False
+        if self.attempts > 0:
+            b = self._p.backoff_for(self.attempts)
+            lo = b * (1.0 - self._p.jitter)
+            delay = lo + (b - lo) * self._p._rng.random()
+            if rem is not None:
+                if delay >= rem:
+                    # Sleeping would consume the whole budget: the
+                    # operation is over, don't burn the wall clock.
+                    return False
+                delay = min(delay, rem)
+            if delay > 0:
+                self.sleeps.append(delay)
+                self._p._sleep(delay)
+        self.attempts += 1
+        return True
+
+    def note(self, error: str) -> None:
+        self.last_error = str(error)
+
+    def summary(self) -> str:
+        budget = ("" if self._p.deadline_s is None
+                  else f" over {self._p.deadline_s:.3g}s budget")
+        return (f"{self.attempts} attempt(s){budget} exhausted; "
+                f"last error: {self.last_error}")

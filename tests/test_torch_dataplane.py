@@ -13,13 +13,16 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
+from ripplemq_tpu_torch.broker import dataplane
 from ripplemq_tpu_torch.broker.dataplane import (
     DataPlane,
     NotCommittedError,
     PartitionFullError,
     recover_image,
 )
+from ripplemq_tpu_torch.ops.rs import indexed_device
 from ripplemq_tpu_torch.storage.segment import SegmentStore
 from tests.torch_helpers import port_cfg, port_dp, read_all
 from tests.torch_port_modules import admit
@@ -347,3 +350,36 @@ def test_spmd_mode_is_not_ported_yet():
         DataPlane(port_cfg(), mode="spmd", device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         DataPlane(port_cfg(), mode="bogus", device="cpu")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reads as lying on CUDA device 0 and cannot be
+    pinned: the stand-in for a tensor already on the card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    def pin_memory(self, *args, **kwargs):
+        raise AssertionError("pinned a tensor that is already on the card")
+
+
+def test_stage_leaves_a_tensor_on_the_plane_device_alone(monkeypatch):
+    """`_stage` hands back a tensor already on the plane's device as it
+    is: on the CPU, and on a CUDA device compared by type and index (a
+    tensor's device always carries its index; `torch.device("cuda")`
+    equals no indexed device, so the plane indexes its own)."""
+    t = torch.arange(4)
+    assert dataplane._stage(t, torch.device("cpu")) is t
+    x = torch.arange(4).as_subclass(_OnCard)
+    assert dataplane._stage(x, torch.device("cuda", 0)) is x
+    assert dataplane._stage(x, torch.device("cuda:0")) is x
+    assert torch.device("cuda") != torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    plane_device = indexed_device("cuda")  # the plane's device, as built
+    assert plane_device == torch.device("cuda", 0)
+    assert dataplane._stage(x, plane_device) is x
+    assert dataplane._stage(x, torch.device("cuda")) is x
+    assert indexed_device("cuda:1") == torch.device("cuda", 1)
+    assert indexed_device("cpu") == torch.device("cpu")
+    assert port_dp(port_cfg()).device == torch.device("cpu")

@@ -1,0 +1,282 @@
+"""The metadata slice of the port: the twin of `tests/test_metadata.py`
+(assigner properties, models, config parsing), run on the port's
+`metadata` package, plus the `ClusterConfig` halves of
+`test_settle_pipeline.py::test_read_coalesce_s_constructor_and_config`
+and `test_store_gc.py::test_retention_config_validation`.
+"""
+
+import random
+
+import pytest
+
+from ripplemq_tpu_torch.metadata import (
+    BrokerInfo,
+    PartitionAssignment,
+    Topic,
+    assign_partitions,
+)
+from ripplemq_tpu_torch.metadata.cluster_config import parse_cluster_config
+from ripplemq_tpu_torch.metadata.models import topics_from_wire, topics_to_wire
+from tests.torch_port_modules import admit
+
+admit(__name__)
+
+
+def mk_topics(spec):
+    return [Topic(name, parts, rf) for name, parts, rf in spec]
+
+
+def all_assignments(topics):
+    return [(t.name, a) for t in topics for a in t.assignments]
+
+
+def test_assign_satisfies_rf_and_uniqueness():
+    topics = mk_topics([("t1", 3, 3), ("t2", 5, 2)])
+    out = assign_partitions(topics, live_brokers=[0, 1, 2, 3, 4])
+    for name, a in all_assignments(out):
+        t = next(t for t in out if t.name == name)
+        assert len(a.replicas) == t.replication_factor
+        assert len(set(a.replicas)) == len(a.replicas)  # no duplicate replica
+
+
+def test_assign_balances_load():
+    topics = mk_topics([("t", 10, 3)])
+    out = assign_partitions(topics, live_brokers=list(range(5)))
+    load = {b: 0 for b in range(5)}
+    for _, a in all_assignments(out):
+        for b in a.replicas:
+            load[b] += 1
+    assert sum(load.values()) == 30
+    assert max(load.values()) - min(load.values()) <= 1
+
+
+def test_assign_deterministic():
+    topics = mk_topics([("a", 7, 3), ("b", 4, 2)])
+    r1 = assign_partitions(topics, [0, 1, 2, 3])
+    r2 = assign_partitions(topics, [3, 2, 1, 0])  # order must not matter
+    assert r1 == r2
+
+
+def test_assign_sticky_keeps_live_replicas():
+    topics = mk_topics([("t", 4, 3)])
+    first = assign_partitions(topics, [0, 1, 2, 3, 4])
+    # Kill broker 0; survivors must be retained.
+    second = assign_partitions(topics, [1, 2, 3, 4], previous=first)
+    for t_first, t_second in zip(first, second):
+        for a1, a2 in zip(t_first.assignments, t_second.assignments):
+            kept = [b for b in a1.replicas if b != 0]
+            assert all(b in a2.replicas for b in kept)
+            assert 0 not in a2.replicas
+            assert len(a2.replicas) == 3
+
+
+def test_assign_leader_retained_or_cleared():
+    topics = mk_topics([("t", 2, 3)])
+    first = assign_partitions(topics, [0, 1, 2])
+    with_leaders = [
+        t.with_assignments(
+            tuple(
+                PartitionAssignment(a.partition_id, a.replicas, a.replicas[0])
+                for a in t.assignments
+            )
+        )
+        for t in first
+    ]
+    # Leader broker stays alive → retained.
+    same = assign_partitions(topics, [0, 1, 2], previous=with_leaders)
+    for t in same:
+        for a in t.assignments:
+            assert a.leader is not None
+    # Kill every leader → cleared (unknown until re-election).
+    dead = {a.leader for t in with_leaders for a in t.assignments}
+    alive = [b for b in [0, 1, 2, 3, 4] if b not in dead]
+    healed = assign_partitions(topics, alive, previous=with_leaders)
+    for t in healed:
+        for a in t.assignments:
+            assert a.leader is None
+
+
+def test_assign_preserves_replica_slot_positions():
+    """A surviving broker must keep its INDEX in the replicas tuple: the
+    index is its physical replica slot in the device state, and per-slot
+    logs never move on reassignment. The replacement for a dead broker
+    must occupy the dead broker's position (it inherits that stale
+    physical slot and gets resynced), not shift everyone else."""
+    topics = mk_topics([("t", 4, 3)])
+    first = assign_partitions(topics, [0, 1, 2, 3, 4])
+    for victim in [0, 1, 2, 3, 4]:
+        live = [b for b in [0, 1, 2, 3, 4] if b != victim]
+        second = assign_partitions(topics, live, previous=first)
+        for t1, t2 in zip(first, second):
+            for a1, a2 in zip(t1.assignments, t2.assignments):
+                assert len(a2.replicas) == len(a1.replicas)
+                for i, b in enumerate(a1.replicas):
+                    if b != victim:
+                        assert a2.replicas[i] == b, (
+                            f"survivor {b} moved from slot {i} "
+                            f"to {a2.replicas.index(b)}"
+                        )
+                    else:
+                        assert a2.replicas[i] != victim
+
+
+def test_assign_positions_stable_under_churn():
+    """Position stability holds across arbitrary membership churn, not
+    just single failures."""
+    rng = random.Random(13)
+    topics = mk_topics([("x", 6, 3)])
+    live = {0, 1, 2, 3, 4}
+    prev = assign_partitions(topics, sorted(live))
+    for _ in range(40):
+        if len(live) > 3 and rng.random() < 0.5:
+            live.discard(rng.choice(sorted(live)))
+        else:
+            live.add(rng.randrange(8))
+        new = assign_partitions(topics, sorted(live), previous=prev)
+        for t_new, t_prev in zip(new, prev):
+            for a_new, a_prev in zip(t_new.assignments, t_prev.assignments):
+                for i, b in enumerate(a_prev.replicas):
+                    if b in live:
+                        assert a_new.replicas[i] == b
+        prev = new
+
+
+def test_assign_infeasible_rf_raises():
+    topics = mk_topics([("t", 1, 3)])
+    with pytest.raises(ValueError):
+        assign_partitions(topics, [0, 1])
+
+
+def test_assign_no_live_brokers_raises():
+    with pytest.raises(ValueError):
+        assign_partitions(mk_topics([("t", 1, 1)]), [])
+
+
+def test_assign_random_membership_churn_property():
+    """Whatever sequence of joins/crashes happens, every assignment stays
+    valid: RF met, all replicas live, sticky where possible."""
+    rng = random.Random(7)
+    topics = mk_topics([("x", 6, 3), ("y", 3, 2)])
+    live = {0, 1, 2, 3, 4}
+    prev = assign_partitions(topics, sorted(live))
+    for _ in range(30):
+        if len(live) > 3 and rng.random() < 0.5:
+            live.discard(rng.choice(sorted(live)))
+        else:
+            live.add(rng.randrange(10))
+        new = assign_partitions(topics, sorted(live), previous=prev)
+        for t in new:
+            for a in t.assignments:
+                assert len(a.replicas) == t.replication_factor
+                assert set(a.replicas) <= live
+                prev_t = next(p for p in prev if p.name == t.name)
+                pa = prev_t.assignment_for(a.partition_id)
+                survivors = [b for b in pa.replicas if b in live][
+                    : t.replication_factor
+                ]
+                assert all(b in a.replicas for b in survivors)
+        prev = new
+
+
+def test_models_wire_roundtrip():
+    t = Topic(
+        "orders-eu",  # dash in name must be safe (fixed reference quirk)
+        2,
+        3,
+        (
+            PartitionAssignment(0, (1, 2, 3), 2),
+            PartitionAssignment(1, (0, 1, 4), None),
+        ),
+    )
+    [back] = topics_from_wire(topics_to_wire([t]))
+    assert back == t
+
+
+def test_parse_cluster_config_both_schemas():
+    raw = {
+        "brokers": [
+            {"id": 1, "hostname": "broker1", "port": 9092},   # reference schema
+            {"broker_id": 2, "host": "b2", "port": 9093},     # native schema
+        ],
+        "topics": [
+            {"name": "topic1", "partitions": 3, "replicationFactor": 2},
+            {"name": "topic2", "partitions": 2, "replication_factor": 2},
+        ],
+    }
+    cfg = parse_cluster_config(raw)
+    assert cfg.broker(1) == BrokerInfo(1, "broker1", 9092)
+    assert cfg.broker(2).host == "b2"
+    assert cfg.engine.partitions == 5  # sum of topic partitions
+    assert cfg.engine.replicas == 2
+    assert cfg.topics[0].replication_factor == 2
+
+
+def test_parse_cluster_config_operational_knobs():
+    """Round-4 knobs reach the config value (and default sanely): the
+    batcher operating point, RPC worker pool, and linearizable reads."""
+    raw = {
+        "brokers": [{"id": 0, "host": "h", "port": 1}],
+        "topics": [{"name": "t", "partitions": 1, "replication_factor": 1}],
+        "coalesce_s": 0.01,
+        "chain_depth": 8,
+        "pipeline_depth": 16,
+        "rpc_workers": 128,
+        "linearizable_reads": True,
+    }
+    cfg = parse_cluster_config(raw)
+    assert cfg.coalesce_s == 0.01
+    assert cfg.chain_depth == 8
+    assert cfg.pipeline_depth == 16
+    assert cfg.rpc_workers == 128
+    assert cfg.linearizable_reads is True
+    defaults = parse_cluster_config(
+        {"brokers": raw["brokers"], "topics": raw["topics"]}
+    )
+    assert defaults.coalesce_s == 0.002
+    assert defaults.chain_depth == 4
+    assert defaults.pipeline_depth == 8
+    assert defaults.rpc_workers == 16
+    assert defaults.linearizable_reads is False
+
+
+def test_parse_rejects_linearizable_reads_without_standbys():
+    """`linearizable_reads: true` with `standby_count: 0` would make the
+    read barrier a silent no-op (no standby ack stream to prove the
+    controller epoch through) — the combination is an explicit parse
+    error, not a code-comment contract."""
+    raw = {
+        "brokers": [{"id": 0, "host": "h", "port": 1}],
+        "topics": [{"name": "t", "partitions": 1, "replication_factor": 1}],
+        "linearizable_reads": True,
+        "standby_count": 0,
+    }
+    with pytest.raises(ValueError, match="standby_count"):
+        parse_cluster_config(raw)
+    raw["standby_count"] = 1
+    assert parse_cluster_config(raw).linearizable_reads is True
+
+
+def test_read_coalesce_s_config():
+    """The `ClusterConfig` half of `test_settle_pipeline.py::
+    test_read_coalesce_s_constructor_and_config` (the DataPlane half is
+    in test_torch_chain_settle.py)."""
+    cfg = parse_cluster_config({
+        "brokers": [{"id": 0, "port": 9000}],
+        "topics": [{"name": "t", "partitions": 1,
+                    "replication_factor": 1}],
+        "read_coalesce_s": 0.004,
+    })
+    assert cfg.read_coalesce_s == pytest.approx(0.004)
+
+
+def test_retention_config_validation():
+    from ripplemq_tpu_torch.metadata.models import BrokerInfo, Topic
+    from ripplemq_tpu_torch.metadata.cluster_config import ClusterConfig
+
+    with pytest.raises(ValueError):
+        ClusterConfig(
+            brokers=(BrokerInfo(0, "h", 1),),
+            topics=(Topic("t", 1, 1),),
+            segment_bytes=1 << 20,
+            store_retention_bytes=1 << 20,  # < 2x segment_bytes
+        )

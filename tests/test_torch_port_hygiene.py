@@ -6,6 +6,7 @@
 - no file of `ripplemq_tpu_torch/`, and not `chip_smoke.py`, imports
   `jax` or the JAX package `ripplemq_tpu` (checked on the AST, so an
   import inside a function counts too);
+- `yaml` is imported only inside `load_cluster_config`;
 - the engine and the erasure-coding entry points run on CUDA unless
   asked otherwise: with no device given and no GPU present,
   `make_local_fns`, `gf_matmul`, `encode_group`, `encode_segment`,
@@ -192,3 +193,36 @@ def test_image_from_numpy_without_device_raises_when_no_gpu(no_gpu):
     got = convert.image_from_numpy(image, device="cpu")
     assert got.log_data.device.type == "cpu"
     assert got.log_data.dtype == torch.uint8
+
+
+def _yaml_import_sites(tree: ast.AST) -> list[str]:
+    """The enclosing function of every `yaml` import ("" at module level)."""
+    sites = []
+
+    def visit(node, fn):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            fn = node.name
+        if isinstance(node, ast.Import) and any(
+                a.name.split(".")[0] == "yaml" for a in node.names):
+            sites.append(fn)
+        if (isinstance(node, ast.ImportFrom) and node.module
+                and node.module.split(".")[0] == "yaml"):
+            sites.append(fn)
+        for child in ast.iter_child_nodes(node):
+            visit(child, fn)
+
+    visit(tree, "")
+    return sites
+
+
+def test_yaml_is_imported_only_inside_load_cluster_config():
+    """A host without PyYAML builds its config from a dict
+    (`parse_cluster_config`); only loading a YAML file needs the module."""
+    sites = {}
+    for path in _port_sources():
+        got = _yaml_import_sites(ast.parse(path.read_text()))
+        if got:
+            sites[path.relative_to(REPO).as_posix()] = got
+    assert sites == {"ripplemq_tpu_torch/metadata/cluster_config.py":
+                     ["load_cluster_config"]}
+    assert _yaml_import_sites(ast.parse("import yaml\n")) == [""]

@@ -1,0 +1,451 @@
+"""The wire slice of the port against the JAX package: the twin of
+`tests/test_wire.py` (codec, in-process faults, TCP pipelining), run on
+the port's `wire` package.
+"""
+
+import threading
+
+import pytest
+
+from ripplemq_tpu_torch.wire import (
+    InProcNetwork,
+    RpcError,
+    RpcTimeout,
+    TcpClient,
+    TcpServer,
+    decode,
+    encode,
+)
+from tests.torch_port_modules import admit
+
+admit(__name__)
+
+
+@pytest.mark.parametrize(
+    "value",
+    [
+        None,
+        True,
+        False,
+        0,
+        -1,
+        2**62,
+        -(2**62),
+        3.75,
+        "",
+        "héllo wörld",
+        b"",
+        b"\x00\xff" * 100,
+        [],
+        [1, "two", b"three", None, [4.5]],
+        {},
+        {"type": "append", "msgs": [b"a", b"b"], "n": 2, "nested": {"x": None}},
+    ],
+)
+def test_codec_roundtrip(value):
+    assert decode(encode(value)) == value
+
+
+def test_codec_rejects_trailing_and_bad_tags():
+    with pytest.raises(ValueError):
+        decode(encode(1) + b"x")
+    with pytest.raises(ValueError):
+        decode(b"\xfe")
+    with pytest.raises(TypeError):
+        encode(object())
+    with pytest.raises(TypeError):
+        encode({1: "non-string key"})
+
+
+def test_codec_rejects_hostile_lengths():
+    """Malformed/hostile frames with negative or oversized length
+    prefixes must fail as clean decode errors, not empty slices or
+    backwards position moves."""
+    from ripplemq_tpu_torch.wire.codec import _write_varint
+
+    def varint(n):
+        out = bytearray()
+        _write_varint(out, n)
+        return bytes(out)
+
+    for tag in (b"s", b"b", b"l", b"m", b"v"):
+        with pytest.raises(ValueError):
+            decode(tag + varint(-1))          # negative length/count
+        with pytest.raises(ValueError):
+            decode(tag + varint(1 << 40))     # exceeds remaining buffer
+    # negative dict-key length inside an otherwise valid dict
+    with pytest.raises(ValueError):
+        decode(b"m" + varint(1) + varint(-3) + b"n")
+    # vector whose length table overruns the frame, and one whose blob
+    # does (table valid, payload bytes missing)
+    import struct as _struct
+
+    with pytest.raises(ValueError):
+        decode(b"v" + varint(3) + _struct.pack("<I", 1))
+    with pytest.raises(ValueError):
+        decode(b"v" + varint(2) + _struct.pack("<II", 3, 3) + b"abc")
+
+
+def test_inproc_basic_and_handler_error():
+    net = InProcNetwork()
+    net.register("b1", lambda req: {"ok": True, "echo": req["x"]})
+    net.register("boom", lambda req: 1 / 0)
+    c = net.client("c1")
+    assert c.call("b1", {"type": "t", "x": b"payload"})["echo"] == b"payload"
+    resp = c.call("boom", {"type": "t"})
+    assert resp["ok"] is False and "ZeroDivisionError" in resp["error"]
+
+
+def test_inproc_faults():
+    net = InProcNetwork()
+    net.register("b1", lambda req: {"ok": True})
+    c = net.client("c1")
+    assert c.call("b1", {"type": "t"})["ok"]
+
+    net.set_down("b1")
+    with pytest.raises(RpcError):
+        c.call("b1", {"type": "t"})
+    net.set_up("b1")
+
+    net.block("c1", "b1")
+    with pytest.raises(RpcTimeout):
+        c.call("b1", {"type": "t"})
+    net.unblock("c1", "b1")
+
+    net.drop_next("c1", "b1", 2)
+    for _ in range(2):
+        with pytest.raises(RpcTimeout):
+            c.call("b1", {"type": "t"})
+    assert c.call("b1", {"type": "t"})["ok"]
+
+    with pytest.raises(RpcError):
+        c.call("nonexistent", {"type": "t"})
+
+
+def test_tcp_roundtrip_pipelined():
+    seen = []
+
+    def handler(req):
+        seen.append(req["i"])
+        return {"ok": True, "i": req["i"], "data": req["data"]}
+
+    server = TcpServer("127.0.0.1", 0, handler)
+    server.start()
+    client = TcpClient()
+    try:
+        addr = f"127.0.0.1:{server.port}"
+        futs = [
+            client.call_async(addr, {"type": "echo", "i": i, "data": b"x" * i})
+            for i in range(32)
+        ]
+        for i, fut in enumerate(futs):
+            resp = fut.result(timeout=5)
+            assert resp["i"] == i and resp["data"] == b"x" * i
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_tcp_handler_exception_becomes_error_response():
+    server = TcpServer("127.0.0.1", 0, lambda req: {}[req["missing"]])
+    server.start()
+    client = TcpClient()
+    try:
+        resp = client.call(f"127.0.0.1:{server.port}", {"type": "t", "missing": "k"})
+        assert resp["ok"] is False and "internal" in resp["error"]
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_tcp_concurrent_callers_share_connection():
+    server = TcpServer("127.0.0.1", 0, lambda req: {"ok": True, "i": req["i"]})
+    server.start()
+    client = TcpClient()
+    errors = []
+
+    def worker(i):
+        try:
+            resp = client.call(f"127.0.0.1:{server.port}", {"type": "t", "i": i})
+            assert resp["i"] == i
+        except Exception as e:  # pragma: no cover
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(20)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+        assert not errors
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_tcp_server_stop_fails_inflight_cleanly():
+    server = TcpServer("127.0.0.1", 0, lambda req: {"ok": True})
+    server.start()
+    client = TcpClient()
+    addr = f"127.0.0.1:{server.port}"
+    assert client.call(addr, {"type": "t"})["ok"]
+    server.stop()
+    with pytest.raises(RpcError):
+        client.call(addr, {"type": "t"}, timeout=2)
+    client.close()
+
+
+def test_bulk_vector_roundtrip_fuzz():
+    """Property check for the packed-vector fast path: random bytes
+    lists (varied lengths, empty elements, nesting) round-trip exactly,
+    through BOTH encoders, and the two wire forms decode to the same
+    value (bulk encoder ↔ generic decoder interop is the same codec —
+    the vector is just another tag — so equality across forms is the
+    interop contract)."""
+    import random
+
+    rng = random.Random(0xC0DEC)
+    for _ in range(200):
+        n = rng.randrange(0, 40)
+        vec = [
+            bytes(rng.getrandbits(8) for _ in range(rng.randrange(0, 64)))
+            for _ in range(n)
+        ]
+        value = rng.choice([
+            vec,
+            {"messages": vec, "n": n},
+            {"nested": [vec, {"again": vec}], "tag": "x"},
+        ])
+        bulk = encode(value)
+        generic = encode(value, bulk=False)
+        assert decode(bulk) == value
+        assert decode(generic) == value
+        assert decode(bulk) == decode(generic)
+
+
+def test_bulk_vector_edge_cases():
+    from ripplemq_tpu_torch.wire.codec import _VEC
+
+    # Empty-bytes elements and bytearray/memoryview inputs normalize to
+    # bytes on decode, same as the generic path.
+    v = [b"", bytearray(b"xy"), memoryview(b"z"), b"\x00" * 5]
+    assert decode(encode(v)) == [b"", b"xy", b"z", b"\x00" * 5]
+    # Mixed lists must stay on the generic form (no vector tag).
+    mixed = [b"a", 1, b"c"]
+    assert encode(mixed)[0:1] != _VEC
+    assert decode(encode(mixed)) == mixed
+    # Empty list stays generic too (nothing to pack).
+    assert encode([])[0:1] != _VEC
+    # The produce-body shape takes the vector form and is
+    # self-consistent.
+    body = {"type": "produce", "messages": [b"m" * 100] * 64}
+    assert _VEC in encode(body)
+    assert decode(encode(body)) == body
+
+
+def test_tcp_pipelining_out_of_order_responses_concurrent():
+    """Frame pipelining under concurrent callers with responses
+    completing OUT OF ORDER: early requests are held by the handler
+    while later ones answer first; every future must still resolve to
+    its own request's payload (request-id matching, not FIFO)."""
+    import time as _time
+
+    def handler(req):
+        if req["i"] % 4 == 0:
+            _time.sleep(0.05)  # stall every 4th: later ids overtake it
+        return {"ok": True, "i": req["i"], "data": req["data"]}
+
+    server = TcpServer("127.0.0.1", 0, handler, workers=8)
+    server.start()
+    client = TcpClient()
+    errors = []
+
+    def caller(base):
+        try:
+            addr = f"127.0.0.1:{server.port}"
+            futs = [
+                (i, client.call_async(
+                    addr, {"type": "echo", "i": i, "data": b"%d" % i}))
+                for i in range(base, base + 16)
+            ]
+            for i, fut in futs:
+                resp = fut.result(timeout=10)
+                assert resp["i"] == i and resp["data"] == b"%d" % i
+        except Exception as e:  # pragma: no cover - failure detail
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=caller, args=(k * 100,))
+                   for k in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not errors, errors
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_codec_rejects_out_of_range_ints():
+    with pytest.raises(OverflowError):
+        encode(2**63)
+    with pytest.raises(OverflowError):
+        encode(-(2**63) - 1)
+    assert decode(encode(2**63 - 1)) == 2**63 - 1
+    assert decode(encode(-(2**63))) == -(2**63)
+
+
+def test_peek_fields_scalars_counts_and_byte_lengths():
+    """Raw-frame dispatch peek: only the requested
+    top-level fields materialize — packed vectors/lists decode to their
+    ELEMENT COUNT, bytes to their byte length, everything else is
+    structurally skipped."""
+    from ripplemq_tpu_torch.wire.codec import peek_fields
+
+    req = {"type": "produce", "topic": "t", "partition": 3,
+           "producer": "p", "pid": 7, "seq": 11,
+           "messages": [b"aa", b"bb", b"cc"], "blob": b"xyzw"}
+    raw = encode(req)
+    got = peek_fields(raw, ("type", "topic", "partition", "pid", "seq",
+                            "messages", "blob"))
+    assert got == {"type": "produce", "topic": "t", "partition": 3,
+                   "pid": 7, "seq": 11, "messages": 3, "blob": 4}
+    # Unrequested fields are skipped, not decoded.
+    assert peek_fields(raw, ("type",)) == {"type": "produce"}
+    assert peek_fields(raw, ("absent",)) == {}
+    # Both encoder forms peek identically (bulk <-> generic interop).
+    assert peek_fields(encode(req, bulk=False),
+                       ("type", "messages")) == {"type": "produce",
+                                                 "messages": 3}
+
+
+def test_peek_fields_refuses_malformed_frames():
+    """None — never an exception or a partial dict — for anything that
+    is not one clean encoded dict: the caller falls back to the
+    ordinary decode path for the canonical error."""
+    from ripplemq_tpu_torch.wire.codec import peek_fields
+
+    assert peek_fields(encode([1, 2]), ("type",)) is None  # not a dict
+    assert peek_fields(encode("s"), ("type",)) is None
+    assert peek_fields(encode({"a": 1}) + b"x", ("a",)) is None  # trailing
+    assert peek_fields(b"", ("a",)) is None
+    assert peek_fields(b"\xfe\x01", ("a",)) is None
+    raw = encode({"a": 1, "b": b"xy"})
+    assert peek_fields(raw[:-1], ("a",)) is None  # truncated
+
+
+# --------------------------------------- differential: the JAX package
+
+
+def _random_value(rng, depth=0):
+    """One codec value drawn from `rng` (numpy), with Python scalars only:
+    the codec refuses numpy integers, as the reference does."""
+    from ripplemq_tpu_torch.wire.codec import _INT64_MAX, _INT64_MIN
+
+    kind = rng.randint(0, 11 if depth < 3 else 8)
+    if kind == 0:
+        return [None, True, False][rng.randint(0, 3)]
+    if kind == 1:
+        return int(rng.randint(-(2**31), 2**31))
+    if kind == 2:
+        return [_INT64_MIN, _INT64_MAX, 0, -1, 2**62,
+                int(rng.randint(0, 2**62)) * 2][rng.randint(0, 6)]
+    if kind == 3:
+        return [float(rng.standard_normal() * 10.0 ** rng.randint(-30, 30)),
+                float("inf"), -0.0][rng.randint(0, 3)]
+    if kind == 4:
+        cps = rng.choice([rng.randint(32, 127), rng.randint(0xA0, 0xD7FF),
+                          rng.randint(0x10000, 0x10FFFF)],
+                         size=rng.randint(0, 40))
+        return "".join(chr(int(c)) for c in cps)
+    if kind in (5, 6):
+        n = [0, 1, rng.randint(2, 300), 70_000][rng.randint(0, 4)]
+        return rng.bytes(n)
+    if kind == 7:  # a bulk vector: empty and large elements mixed
+        sizes = rng.choice([0, 1, 17, 4096, 1 << 20],
+                           size=rng.randint(1, 9), p=[.3, .2, .3, .15, .05])
+        return [rng.bytes(int(n)) for n in sizes]
+    if kind == 8:
+        return [_random_value(rng, depth + 1)
+                for _ in range(rng.randint(0, 6))]
+    if kind == 9:
+        return tuple(_random_value(rng, depth + 1)
+                     for _ in range(rng.randint(0, 4)))
+    return {f"k{rng.randint(0, 1000)}é": _random_value(rng, depth + 1)
+            for _ in range(rng.randint(0, 6))}
+
+
+def _plain(v):
+    """A decoded value in comparable form (views as bytes, tuples as
+    lists: the codec has one sequence type)."""
+    if isinstance(v, (bytes, bytearray, memoryview)):
+        return bytes(v)
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    return v
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_codec_bytes_equal_the_reference(seed):
+    """Differential, exact: seeded values (every supported type, nested,
+    bulk vectors with empty and 1 MiB elements) encode to the same bytes
+    in both packages, in the packed and the generic form, and each
+    package decodes the other's bytes to the value."""
+    import numpy as np
+
+    from ripplemq_tpu.wire import codec as ref
+    from ripplemq_tpu_torch.wire import codec as port
+
+    rng = np.random.RandomState(seed)
+    for _ in range(48):
+        v = _random_value(rng)
+        for bulk in (True, False):
+            raw = port.encode(v, bulk=bulk)
+            assert raw == ref.encode(v, bulk=bulk)
+            assert _plain(ref.decode(raw)) == _plain(v)
+            assert _plain(port.decode(raw)) == _plain(v)
+        blob = rng.bytes(int(rng.randint(0, 5000)))
+        meta = {"type": "repl.rounds", "epoch": int(rng.randint(0, 99))}
+        framed = port.encode_dict_with_blob(meta, "payload", blob)
+        assert framed == ref.encode_dict_with_blob(meta, "payload", blob)
+        assert (ref.peek_fields(framed, ("type", "epoch", "payload"))
+                == port.peek_fields(framed, ("type", "epoch", "payload")))
+
+
+def test_frames_cross_between_packages():
+    """Frame header (u32 BE body length, u64 BE request id) and body: a frame
+    written by either package is read back by the other, byte-exact."""
+    import socket
+
+    from ripplemq_tpu.wire import codec as ref
+    from ripplemq_tpu_torch.wire import codec as port
+
+    a, b = socket.socketpair()
+    a.settimeout(5.0)
+    b.settimeout(5.0)
+    try:
+        for req_id, body in [(0, b""), (7, port.encode({"x": [b"", b"y"]})),
+                             (2**64 - 1, b"\x00" * 70_000)]:
+            port.write_frame(a, req_id, body)
+            assert ref.read_frame(b) == (req_id, body)
+            ref.write_frame(b, req_id, body)
+            assert port.read_frame(a) == (req_id, body)
+        port.write_frame(a, 5, b"abc")
+        assert b.recv(15) == b"\x00\x00\x00\x03" + (5).to_bytes(8, "big") + b"abc"
+    finally:
+        a.close()
+        b.close()
+
+
+def test_codec_refuses_numpy_scalars_like_the_reference():
+    import numpy as np
+
+    from ripplemq_tpu.wire import codec as ref
+    from ripplemq_tpu_torch.wire import codec as port
+
+    for mod in (ref, port):
+        with pytest.raises(TypeError, match="int64"):
+            mod.encode({"a": np.int64(3)})

@@ -24,14 +24,20 @@ PORT_TEST_MODULES = (
     "test_torch_dataplane",
     "test_torch_dataplane_parity",
     "test_torch_engine",
+    "test_torch_groups",
+    "test_torch_hostraft",
+    "test_torch_manager",
+    "test_torch_metadata",
     "test_torch_obs",
     "test_torch_port_hygiene",
     "test_torch_read_cache",
+    "test_torch_replication",
     "test_torch_retention",
     "test_torch_rs",
     "test_torch_step",
     "test_torch_storage",
     "test_torch_stripes",
+    "test_torch_wire",
 )
 
 
