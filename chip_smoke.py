@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch port (`ripplemq_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--dataplane-only | --control-only]
+    python3 chip_smoke.py [--seed N]
+                          [--dataplane-only | --control-only | --broker-only]
 
-`--dataplane-only` builds the kernels and runs only phase 8, and
-`--control-only` only phase 9, without the result line: loops for
-measuring the DataPlane and the control path. Runs only where
+`--dataplane-only` builds the kernels and runs only phase 8,
+`--control-only` only phase 9 and `--broker-only` only phase 10, without
+the result line: loops for measuring the DataPlane, the control path and
+the broker path (`--broker-only` also times the consumers' drain with the
+reference's auto-commit against the port's). Runs only where
 `torch.cuda.is_available()`; exits nonzero at once
 elsewhere, and when run outside a checkout of the repository (the port's
 package must be importable next to it). Every phase prints one line; a
@@ -23,7 +26,9 @@ phase that fails raises, and the script exits nonzero with no result.
    compared with torch.equal; then the dataplane path's shapes (1024 x 5,
    slots 2048, B 32: the 1.36 GB ring) and the control path's (1024 x 3:
    the 0.82 GB ring) at every active-set bucket A in
-   {8, 32, 128, 512, 1024}, the whole log compared; then small
+   {8, 32, 128, 512, 1024}, the whole log compared, and the broker
+   path's (1024 x 3, slots 4608, B 512: the 1.81 GB ring, entries of
+   64 KiB) at the same buckets; then small
    configurations that reach the
    kernel's register path (SB = 25; logs and entries at 1, 3 and 8-byte
    offsets; bases from -B) and its bulk path with SB % 16 != 0
@@ -109,18 +114,43 @@ phase that fails raises, and the script exits nonzero with no result.
    elections on the promoted plane, one more batch a partition, every
    acked message read back from it. Cuts: the topics' 3 partitions
    scaled to 512 each, the replica axis cut from 5 to 3, the broker's
-   duty loops played by the script, the standby side a stand-in for the
-   broker server's handler (slice D2);
-10. times: each kernel's device time alone (the profiler's events by
+   duty loops played by the script; the standbys' side of the stream is
+   the port server's own (`apply_repl_rounds`, `flush_repl_store`);
+10. the broker path: bench.py's end-to-end topology with its config, no
+   cut: three brokers on loopback TCP, topic "bench" of 1024 partitions
+   at RF 3, a data_dir (an erasure-coded `SegmentStore`, 64 MiB
+   segments) on each; the controller the port's `BrokerServer` in this
+   process with its DataPlane on CUDA (1024 x 3, slots 4608, B 512, SB
+   128, fused_control + packed_writes: a 1.81 GB ring log), the two
+   standbys `python -m ripplemq_tpu_torch.broker --device cuda`
+   processes started through the port's `ProcCluster`; the port's
+   `ProducerClient` and `ConsumerClient` in a child process (its own
+   interpreter). Traffic: 16 x 250 awaited single-message produces
+   (appends/s, ack p50/p99/p999); a windowed bulk backlog of 8 producers
+   x window 16 x batches of 512, enough to seal at least two 64 MiB
+   segments; 16 consumers with auto-commit reading every partition from
+   0, every acked message once, byte-exact, at its acked offset, and the
+   committed offsets read back equal; the controller's stage means. Then
+   the controller stopped: a standby promotes and boots its plane on the
+   card from its store (`replay_records` + `install`), every partition
+   led by a live broker again (promotion -> serving, s), one more bulk
+   window, every acked message read back from the promoted controller,
+   both consumer sets' committed offsets equal. Checks after stopping:
+   every sealed segment of the controller has 5 CRC-valid shards and an
+   RS launch each; both standbys' stores hold every record of the
+   controller's; the packed append launched at least once a controller
+   round and the legacy variant never;
+11. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
-11. a JSON line naming each ported kernel (gf_matmul's launches split by
+12. a JSON line naming each ported kernel (gf_matmul's launches split by
    consumer and by path; the append variants' launches on the dataplane
-   path as `launches_dataplane` and on the control path as
-   `launches_control`), then the card line again, then the result line
+   path as `launches_dataplane`, on the control path as
+   `launches_control`, and each kernel's on the broker path as
+   `launches_broker`), then the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
 
@@ -154,6 +184,12 @@ from ripplemq_tpu_torch.broker.manager import (
     PartitionManager,
 )
 from ripplemq_tpu_torch.broker.replication import RoundReplicator
+from ripplemq_tpu_torch.broker.server import (
+    BrokerServer,
+    _ReplStreamGate,
+    apply_repl_rounds,
+    flush_repl_store,
+)
 from ripplemq_tpu_torch.core.config import ALIGN, ROW_HEADER, EngineConfig
 from ripplemq_tpu_torch.core.encode import decode_entries, row_extents
 from ripplemq_tpu_torch.core.state import StepInput
@@ -338,9 +374,11 @@ def kernel_vs_plain(ops, cfg, seed) -> dict:
     del log_k, log_p
     torch.cuda.empty_cache()
     # The DataPlane's shapes: the dataplane path's 1.36 GB ring and the
-    # control path's 0.82 GB one (3 replicas), B = 32, at every active-set
-    # bucket the batcher pads a round to.
-    for path, shape in (("dataplane", DP_SHAPE), ("control", CTRL_SHAPE)):
+    # control path's 0.82 GB one (3 replicas), B = 32, and the broker
+    # path's 1.81 GB one (3 replicas, B = 512: 64 KiB entries), at every
+    # active-set bucket the batcher pads a round to.
+    for path, shape in (("dataplane", DP_SHAPE), ("control", CTRL_SHAPE),
+                        ("broker", BROKER_SHAPE)):
         dp_cfg = EngineConfig(**shape)
         log_k = torch.empty((dp_cfg.replicas, dp_cfg.partitions,
                              dp_cfg.slots + dp_cfg.max_batch,
@@ -1675,19 +1713,26 @@ class CtrlBroker:
     """One broker of the control path: a TCP server on a free loopback
     port, the metadata Raft (`RaftNode` + `RaftRunner` over `TcpClient`,
     wired as BrokerServer wires them), its `PartitionManager` as the
-    state machine, and a segment store that takes the standby stream."""
+    state machine, and a segment store that takes the standby stream.
+
+    The standby side of the stream is the port server's own:
+    `apply_repl_rounds` with a `_ReplStreamGate`, then
+    `flush_repl_store` (no data plane, follower plane or span ring on a
+    broker of this path)."""
 
     def __init__(self, bid: int, workdir: str) -> None:
-        self.id = bid
+        self.id = self.broker_id = bid
         self.server = TcpServer("127.0.0.1", 0, self.dispatch)
         self.store_dir = os.path.join(workdir, f"ctrl-broker-{bid}")
         self.store = self.runner = self.manager = self.client = None
+        self.config = None
         self.applied = {}  # raft index -> (host time, command, apply s)
-        self.repl_cond = threading.Condition()
-        self.repl_expected = {}  # (sender, epoch) -> next sseq to apply
+        self.repl_gate = _ReplStreamGate()
+        self.repl_last_flush = 0.0
         self.up = False
 
     def boot(self, config, addr_of) -> None:
+        self.config = config
         self.manager = PartitionManager(self.id, config)
         etick = max(2, round(config.metadata_election_timeout_s / CTRL_TICK_S))
         node = RaftNode(self.id, config.broker_ids(), apply_fn=self.apply,
@@ -1724,32 +1769,13 @@ class CtrlBroker:
         return {"ok": False, "error": f"unknown request type {kind!r}"}
 
     def repl_rounds(self, req: dict) -> dict:
-        # A stand-in for the standby side of the committed-round stream,
-        # BrokerServer._handle_repl_rounds with its _ReplStreamGate
-        # (ripplemq_tpu/broker/server.py), which slice D2 ports. It is
-        # not a port of them: it keeps only the contract the sender
-        # relies on — a stale epoch is refused, frames apply strictly in
-        # per-(sender, epoch) sseq order (a duplicate re-applies, a gap
-        # past one second is refused with the expected counter), and
-        # every frame lands in this broker's store with one append_many.
-        epoch = int(req["epoch"])
-        cur = self.manager.current_epoch()
-        if epoch < cur:
-            return {"ok": False, "error": "stale_epoch", "epoch": cur}
-        key, sseq = (int(req.get("sender", -1)), epoch), int(req["sseq"])
-        deadline = time.monotonic() + 1.0
-        with self.repl_cond:
-            self.repl_expected.setdefault(key, 0)
-            while sseq > self.repl_expected[key]:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    return {"ok": False, "expected": self.repl_expected[key],
-                            "error": "repl_seq_gap: predecessor missing"}
-                self.repl_cond.wait(left)
-            self.store.append_many([(int(t), int(s), int(b), bytes(p))
-                                    for t, s, b, p in req["records"]])
-            self.repl_expected[key] = max(self.repl_expected[key], sseq + 1)
-            self.repl_cond.notify_all()
+        refusal = apply_repl_rounds(req, self.manager, self.store,
+                                    self.repl_gate)
+        if refusal is not None:
+            return refusal
+        self.repl_last_flush = flush_repl_store(
+            self.store, self.config.durability == "strict",
+            self.repl_last_flush)
         return {"ok": True}
 
     def stop(self) -> None:
@@ -1940,11 +1966,10 @@ def control_path(seed, card, workdir) -> dict:
     the card, every round streamed to two standbys before its ack; a
     broker lost, the controller lost and a standby promoted. Cuts: the
     topics' 3 partitions scaled to 512 each, the replica axis cut to 3,
-    the broker's duty loops played by this function (they come with the
-    broker server), the standby side a stand-in (`repl_rounds`), the
-    broker loss committed as a live-set advance and then the
-    re-placement, a drill of the form the broker commits only when RF
-    cannot be met (step 6)."""
+    the broker's duty loops played by this function, the broker loss
+    committed as a live-set advance and then the re-placement, a drill
+    of the form the broker commits only when RF cannot be met (step 6).
+    The standbys answer the stream with the port's own handler."""
     t_phase = time.perf_counter()
     brokers = [CtrlBroker(i, workdir) for i in range(CTRL_BROKERS)]
     config = ClusterConfig(
@@ -2207,6 +2232,575 @@ def control_path(seed, card, workdir) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 10: the broker path
+
+# bench.py's end-to-end topology (`_run_e2e`, bench.py:1057-1110) with its
+# cluster config (`e2e_raw_config`, bench.py:794-850), unchanged: 3
+# brokers on loopback TCP, topic "bench" of 1024 partitions at RF 3, the
+# controller's engine 1024 x 3 (slots 4608, B 512, SB 128, fused_control
+# and packed_writes, settle_window 8), a data_dir (an erasure-coded
+# SegmentStore at the default 64 MiB segments) on every broker.
+BROKER_TOPIC = "bench"
+BROKER_SHAPE = dict(partitions=1024, replicas=3, slots=4608, slot_bytes=128,
+                    max_batch=512, read_batch=1024, max_consumers=64,
+                    max_offset_updates=8, fused_control=True,
+                    packed_writes=True, settle_window=8)
+
+
+def broker_raw_config(ports) -> dict:
+    """The broker path's cluster config, as the broker CLI loads it."""
+    return {
+        "host_workers": 1,
+        "brokers": [{"id": i, "host": "127.0.0.1", "port": p}
+                    for i, p in enumerate(ports)],
+        "topics": [{"name": BROKER_TOPIC,
+                    "partitions": BROKER_SHAPE["partitions"],
+                    "replication_factor": 3}],
+        "engine": dict(BROKER_SHAPE),
+        "election_timeout_s": 0.5,
+        "metadata_election_timeout_s": 8.0,
+        "membership_poll_s": 0.5,
+        "rpc_timeout_s": 60.0,
+        "rpc_workers": 320,
+        "coalesce_s": 0.03,
+    }
+
+
+BROKER_LAT = (16, 250)        # awaited single-message producers x messages
+BROKER_PRODUCERS = 8          # windowed bulk producers (bench.py:1057)
+BROKER_WINDOW = 16            # batches in flight per producer
+BROKER_SEALED = 2             # sealed 64 MiB segments the bulk must fill
+BROKER_AFTER_BATCHES = 16     # bulk batches per producer after the failover
+BROKER_CONSUMERS = 16         # consumer threads (auto-commit)
+BROKER_WAIT_S = 300.0         # bound of every wait of the phase
+# bench.py's _DECOMPOSITION_STAGES: the produce ack's stages, as the
+# controller's telemetry attributes them.
+E2E_STAGES = ("engine.dispatch_us", "settle.commit_wait_us",
+              "settle.enter_wait_us", "settle.standby_ack_us",
+              "settle.persist_us", "settle.release_us", "store.append_us",
+              "store.fsync_us", "repl.frame_us", "repl.group_rounds",
+              "engine.chain_rounds")
+
+
+def broker_bulk_batches(raw) -> int:
+    """Bulk batches per producer: enough full batches (B rows of SB bytes
+    in the store each) for BROKER_SEALED + 1 segments, so that at least
+    BROKER_SEALED of them seal."""
+    e = raw["engine"]
+    seg = raw.get("segment_bytes", SEG_BYTES)
+    total = -(-(BROKER_SEALED + 1) * seg // (e["max_batch"] * e["slot_bytes"]))
+    return -(-total // BROKER_PRODUCERS)
+
+
+def run_threads(what: str, n: int, work) -> float:
+    """`work(tid)` on n threads; the seconds until all ended. Raises if
+    one raised or did not end within BROKER_WAIT_S."""
+    errors = []
+
+    def worker(tid):
+        try:
+            work(tid)
+        except Exception as e:
+            errors.append((tid, repr(e)))
+
+    ts = [threading.Thread(target=worker, args=(t,), daemon=True)
+          for t in range(n)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=BROKER_WAIT_S)
+    secs = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in ts):
+        raise AssertionError(f"{what} failed: {errors[:3]}")
+    return secs
+
+
+def broker_client_main(spec_path: str) -> int:
+    """The broker path's client process (`chip_smoke.py --broker-client
+    SPEC`): the port's ProducerClient and ConsumerClient, driven phase by
+    phase over a line protocol on stdin/stdout (LAT, BULK n, DRAIN tag
+    [ref], COMMITTED tag, BEHIND tag, PROBE, EXIT -> `RESULT <json>`), as
+    bench.py's `_e2e_client_main` runs them. It keeps every acked message
+    at its acked offset and checks each read against them."""
+    from ripplemq_tpu_torch.client.consumer import ConsumerClient
+    from ripplemq_tpu_torch.client.metadata import MetadataManager
+    from ripplemq_tpu_torch.client.producer import ProducerClient
+    from ripplemq_tpu_torch.wire.transport import TcpClient
+
+    class ReferenceCommits(ConsumerClient):
+        """The JAX package's pipelined auto-commit, for the commit A/B
+        only: a newer commit of a partition goes out while older ones
+        are in flight, so the broker's worker pool may apply them out of
+        order (ROADMAP.md §3). The port's `_auto_commit` waits for the
+        previous one."""
+
+        def _auto_commit(self, topic, pid, offset, addr, call_async):
+            if self.prefetch <= 0 or call_async is None:
+                self.commit(topic, pid, offset)
+                return
+            key = (topic, pid)
+            prev = self._commits.get(key)
+            if prev is not None and prev[1].done():
+                self._commits.pop(key, None)
+                try:
+                    ok = bool(prev[1].result(timeout=0).get("ok"))
+                except Exception:
+                    ok = False
+                if not ok:
+                    self.commit(topic, pid, max(int(prev[0]), int(offset)))
+                    return
+            fut = call_async(addr, {
+                "type": "offset.commit", "topic": topic, "partition": pid,
+                "consumer": self.consumer_id, "offset": int(offset)})
+            self._commits[key] = (int(offset), fut, addr)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    boot, P, seed = spec["bootstrap"], int(spec["partitions"]), spec["seed"]
+    B, read_batch = int(spec["max_batch"]), int(spec["read_batch"])
+    acked = Acked(P)
+    committed = {}  # drain tag -> {partition: the offset its reader committed}
+    bulk_round = [0]
+
+    def lat() -> dict:
+        threads, per = BROKER_LAT
+        lats = []
+
+        def worker(tid):
+            pc = ProducerClient(boot, rpc_timeout_s=120.0)
+            try:
+                rng = np.random.default_rng(seed * 1000 + tid)
+                filler = rng.integers(0, 256, PAYLOAD_BYTES,
+                                      dtype=np.uint8).tobytes()
+                for seq, p in enumerate(rng.integers(0, P, per)):
+                    m = payload(tid, seq, filler)
+                    t0 = time.perf_counter()
+                    base = pc.produce(BROKER_TOPIC, m, partition=int(p))
+                    lats.append(time.perf_counter() - t0)
+                    acked.add(int(p), base, [m])
+            finally:
+                pc.close()
+
+        secs = run_threads("latency producers", threads, worker)
+        a = np.asarray(lats) * 1e3
+        return dict(messages=len(lats), appends_per_s=len(lats) / secs,
+                    p50_ms=float(np.percentile(a, 50)),
+                    p99_ms=float(np.percentile(a, 99)),
+                    p999_ms=float(np.percentile(a, 99.9)))
+
+    def bulk(batches: int) -> dict:
+        k0 = bulk_round[0]
+        bulk_round[0] += batches
+
+        def worker(tid):
+            pc = ProducerClient(boot, rpc_timeout_s=120.0)
+            try:
+                rng = np.random.default_rng(seed * 7919 + tid)
+                filler = rng.integers(0, 256, PAYLOAD_BYTES,
+                                      dtype=np.uint8).tobytes()
+                pending = collections.deque()
+                for k in range(k0, k0 + batches):
+                    while len(pending) >= BROKER_WINDOW:
+                        p, msgs, w = pending.popleft()
+                        acked.add(p, w(), msgs)
+                    p = (tid + BROKER_PRODUCERS * k) % P
+                    msgs = [payload(100 + tid, k * B + i, filler)
+                            for i in range(B)]
+                    pending.append((p, msgs, pc.produce_batch_async(
+                        BROKER_TOPIC, msgs, partition=p)))
+                while pending:
+                    p, msgs, w = pending.popleft()
+                    acked.add(p, w(), msgs)
+            finally:
+                pc.close()
+
+        secs = run_threads("bulk producers", BROKER_PRODUCERS, worker)
+        n = BROKER_PRODUCERS * batches * B
+        return dict(messages=n, appends_per_s=n / secs, seconds=secs)
+
+    def drain(tag: str, logic: str = "port") -> dict:
+        """Every partition read from 0 by a consumer with auto-commit:
+        each answer must be exactly the acked messages in [offset,
+        next_offset), so every acked message comes back once, byte-exact,
+        at its acked offset. `logic` "ref": the reference's commits."""
+        client = ReferenceCommits if logic == "ref" else ConsumerClient
+        ends = {}
+        got = [0] * BROKER_CONSUMERS
+
+        def walk(cc, p: int) -> int:
+            want = sorted(acked.by_part[p])
+            i = n = 0
+            off = 0
+            for _ in range(len(want) + 64):
+                msgs, pp, start, nxt = cc.consume_with_position(
+                    BROKER_TOPIC, partition=p)
+                if pp != p or start != off:
+                    raise AssertionError(f"partition {p}: read at {start} "
+                                         f"(partition {pp}), expected {off}")
+                if not msgs and nxt <= off:
+                    break
+                j = i
+                while j < len(want) and want[j][0] < nxt:
+                    j += 1
+                if msgs != [m for _, m in want[i:j]]:
+                    raise AssertionError(
+                        f"partition {p}: read({off}) -> {len(msgs)} messages "
+                        f"to {nxt}, acked {j - i} in that window")
+                n += len(msgs)
+                i, off = j, nxt
+            if i != len(want):
+                raise AssertionError(f"partition {p}: read {i} of "
+                                     f"{len(want)} acked messages")
+            ends[p] = off
+            return n
+
+        def worker(tid):
+            cc = client(boot, f"chip-{tag}-{tid}", max_messages=read_batch,
+                        rpc_timeout_s=60.0, prefetch=1)
+            try:
+                got[tid] = sum(walk(cc, p)
+                               for p in range(tid, P, BROKER_CONSUMERS))
+            finally:
+                cc.close()  # flushes the in-flight auto-commits
+
+        secs = run_threads("consumers", BROKER_CONSUMERS, worker)
+        if sum(got) != acked.count():
+            raise AssertionError(f"read {sum(got)} of {acked.count()}")
+        committed[tag] = ends
+        return dict(messages=sum(got), msgs_per_s=sum(got) / secs,
+                    seconds=secs)
+
+    def committed_offsets(tag: str) -> list:
+        """(partition, committed as the brokers answer it, committed by
+        the reads) where the two differ."""
+        wrong = []
+        for tid in range(BROKER_CONSUMERS):
+            cc = ConsumerClient(boot, f"chip-{tag}-{tid}", auto_commit=False,
+                                rpc_timeout_s=60.0)
+            try:
+                for p in range(tid, P, BROKER_CONSUMERS):
+                    _, _, off, _ = cc.consume_with_position(
+                        BROKER_TOPIC, partition=p, max_messages=0)
+                    if off != committed[tag][p]:
+                        wrong.append((p, off, committed[tag][p]))
+            finally:
+                cc.close()
+        return wrong
+
+    def check_committed(tag: str) -> dict:
+        """Each consumer's committed offset on each of its partitions, as
+        the brokers answer it, equals the offset its reads committed."""
+        wrong = committed_offsets(tag)
+        if wrong:
+            raise AssertionError(f"committed offsets differ (partition, "
+                                 f"read, committed): {wrong[:8]}")
+        return dict(partitions=len(committed[tag]))
+
+    def behind(tag: str) -> dict:
+        """How many partitions' committed offsets the brokers hold behind
+        what the reads committed (the commit A/B's count, not a check)."""
+        wrong = committed_offsets(tag)
+        return dict(partitions=len(committed[tag]), behind=sum(
+            1 for _, got, want in wrong if got < want), differ=len(wrong))
+
+    def probe() -> dict:
+        """After the controller's loss: wait until every partition is led
+        by a live broker and a produce is acked again."""
+        t = TcpClient()
+        meta = MetadataManager(t, boot, refresh_interval_s=3600,
+                               rpc_timeout_s=5.0)
+        dead = boot[0]
+        deadline = time.monotonic() + BROKER_WAIT_S
+        try:
+            while True:
+                try:
+                    meta.refresh()
+                    top = meta.topic(BROKER_TOPIC)
+                    if top is not None and all(
+                            a.leader is not None
+                            and meta.leader_addr(BROKER_TOPIC,
+                                                 a.partition_id) != dead
+                            for a in top.assignments):
+                        break
+                except Exception:
+                    pass
+                if time.monotonic() > deadline:
+                    raise TimeoutError("no leaders after the failover")
+                time.sleep(0.2)
+        finally:
+            meta.close()
+            t.close()
+        pc = ProducerClient(boot, rpc_timeout_s=60.0)
+        m = payload(99, 0, b"x" * PAYLOAD_BYTES)
+        try:
+            while True:
+                try:
+                    acked.add(0, pc.produce(BROKER_TOPIC, m, partition=0),
+                              [m])
+                    return dict(ok=True)
+                except Exception:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.2)
+        finally:
+            pc.close()
+
+    print("READY", flush=True)
+    for line in sys.stdin:
+        cmd = line.split()
+        if not cmd:
+            continue
+        if cmd[0] == "EXIT":
+            break
+        try:
+            res = {"LAT": lambda: lat(), "BULK": lambda: bulk(int(cmd[1])),
+                   "DRAIN": lambda: drain(*cmd[1:3]),
+                   "COMMITTED": lambda: check_committed(cmd[1]),
+                   "BEHIND": lambda: behind(cmd[1]),
+                   "PROBE": lambda: probe()}[cmd[0]]()
+        except Exception as e:
+            print("ERROR " + repr(e)[:2000], flush=True)
+            return 1
+        print("RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+class BrokerClients:
+    """The broker path's client process and its line protocol."""
+
+    def __init__(self, spec: dict, workdir: str) -> None:
+        spec_path = os.path.join(workdir, "clients.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        self.log_path = os.path.join(workdir, "clients.log")
+        with open(self.log_path, "wb") as log:
+            # Its own interpreter (not a fork: CUDA is initialised here).
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--broker-client", spec_path],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log,
+                text=True, bufsize=1, cwd=os.path.dirname(
+                    os.path.abspath(__file__)))
+        self.expect("READY")
+
+    def expect(self, tag: str) -> str:
+        line = (self.proc.stdout.readline() or "").strip()
+        if not line.startswith(tag):
+            with open(self.log_path) as f:
+                tail = f.read()[-2000:]
+            raise AssertionError(f"broker path: the client process answered "
+                                 f"{line[:2000]!r}, wanted {tag}; its "
+                                 f"stderr ends {tail!r}")
+        return line[len(tag):].strip()
+
+    def run(self, cmd: str) -> dict:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return json.loads(self.expect("RESULT "))
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.write("EXIT\n")
+                self.proc.stdin.flush()
+                self.proc.wait(timeout=30)
+            except Exception:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def store_digest(store_dir) -> collections.Counter:
+    from ripplemq_tpu_torch.storage.segment import scan_store
+
+    return collections.Counter((t, s, b, zlib.crc32(p))
+                               for t, s, b, p in scan_store(store_dir))
+
+
+def broker_path(seed, card, workdir, commit_ab=False) -> dict:
+    """Phase 10 (see the module docstring): the port's BrokerServer as
+    the controller in this process on the card, two standby broker
+    processes (`python -m ripplemq_tpu_torch.broker --device cuda`), the
+    port's clients in a child process; traffic, read-back, a controller
+    failover, read-back again. No cut to the topology.
+
+    `commit_ab`: after the first drain, drain everything again with the
+    reference's auto-commit (consumer set r), then with the port's (c),
+    and report both rates and how many partitions r left committed at an
+    older offset."""
+    from ripplemq_tpu_torch.chaos.proc_cluster import ProcCluster, free_ports
+    from ripplemq_tpu_torch.metadata.cluster_config import (
+        load_cluster_config,
+        parse_cluster_config,
+    )
+    from ripplemq_tpu_torch.storage.segment import list_segment_files
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "broker-path")
+    raw = broker_raw_config(free_ports(3))
+    config = parse_cluster_config(raw)
+    cfg, P = config.engine, config.engine.partitions
+    # The standbys through the port's process cluster, from its own
+    # config file: it must load as the controller's config, or a
+    # promoted standby would boot another engine.
+    standbys = ProcCluster(config=config, data_dir=root, device=DEV)
+    if load_cluster_config(standbys.config_path) != config:
+        raise AssertionError("broker path: the standbys' config file "
+                             "differs from the controller's config")
+    ctrl_dir = os.path.join(root, "broker-0")
+    controller = clients = None
+    out = {}
+    try:
+        controller = BrokerServer(0, config, net=None, data_dir=ctrl_dir,
+                                  device=DEV)
+        controller.start()
+        for b in (1, 2):
+            standbys.restart(b)  # a fresh broker process; 0 is this one
+        m0 = controller.manager
+
+        def ready():
+            dp = controller.dataplane
+            tops = m0.get_topics()
+            return (dp is not None and tops
+                    and len(m0.current_standbys()) == config.standby_count
+                    and all(a.leader is not None
+                            for t in tops for a in t.assignments))
+
+        wait_for(ready, "broker path: every partition led and both standbys "
+                 "joined", BROKER_WAIT_S)
+        dp = controller.dataplane
+        if dp.device.type != torch.device(DEV).type:
+            raise AssertionError(f"broker path: plane on {dp.device}")
+        dp.warm(buckets=dp.all_buckets())
+        wt = controller._warm_thread
+        if wt is not None:
+            wt.join(timeout=BROKER_WAIT_S)
+        leaders = collections.Counter(a.leader for t in m0.get_topics()
+                                      for a in t.assignments)
+        print(f"broker path: boot: controller BrokerServer 0 on "
+              f"{dp.device} (P={P} R={cfg.replicas} slots={cfg.slots} "
+              f"B={cfg.max_batch} SB={cfg.slot_bytes}, fused_control + "
+              f"packed_writes), standby processes 1, 2 (--device {DEV}) "
+              f"joined {list(m0.current_standbys())}, leaders "
+              f"{dict(leaders)}, warmed, in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        clients = BrokerClients(dict(
+            bootstrap=[b.address for b in config.brokers], partitions=P,
+            max_batch=cfg.max_batch, read_batch=cfg.read_batch, seed=seed),
+            root)
+        batches = broker_bulk_batches(raw)
+        # The main path: counts zeroed just before, read just after.
+        append_ops.reset_launches()
+        rs_ops.reset_launches()
+        r0 = dp.rounds
+        out["latency"] = lat = clients.run("LAT")
+        out["bulk"] = bulk = clients.run(f"BULK {batches}")
+        out["drain"] = drain = clients.run("DRAIN a")
+        clients.run("COMMITTED a")
+        hists = controller.dispatch(
+            {"type": "admin.metrics"})["metrics"]["histograms"]
+        stages = {s: hists[s]["mean"] for s in E2E_STAGES if s in hists}
+        out["stages"] = stages
+        print(f"broker path: traffic: {lat['appends_per_s']:.1f} "
+              f"single-message appends/s ({BROKER_LAT[0]} x "
+              f"{BROKER_LAT[1]} awaited), ack p50 {lat['p50_ms']:.3f} p99 "
+              f"{lat['p99_ms']:.3f} p999 {lat['p999_ms']:.3f} ms; bulk "
+              f"{bulk['messages']} msgs ({BROKER_PRODUCERS} producers x "
+              f"{batches} batches of {cfg.max_batch}, window "
+              f"{BROKER_WINDOW}) {bulk['appends_per_s']:.1f} appends/s; "
+              f"consume {drain['messages']} msgs {drain['msgs_per_s']:.1f} "
+              f"msgs/s, every acked message once, byte-exact, at its acked "
+              f"offset; committed offsets equal; stage means us {stages} "
+              f"[{card}]", flush=True)
+        if commit_ab:
+            ref = clients.run("DRAIN r ref")
+            ref_behind = clients.run("BEHIND r")
+            port = clients.run("DRAIN c")
+            clients.run("COMMITTED c")
+            out["commit_ab"] = dict(port=[drain, port], ref=ref,
+                                    ref_behind=ref_behind)
+            print(f"broker path: commit A/B (prefetch 1, {BROKER_CONSUMERS} "
+                  f"consumers, {drain['messages']} msgs each drain): port's "
+                  f"one commit in flight a partition {drain['msgs_per_s']:.1f}"
+                  f" then {port['msgs_per_s']:.1f} msgs/s, committed offsets "
+                  f"equal; reference's pipelined commits "
+                  f"{ref['msgs_per_s']:.1f} msgs/s, between them, "
+                  f"{ref_behind['behind']} of {ref_behind['partitions']} "
+                  f"partitions left committed behind the reads "
+                  f"({ref_behind['differ']} differ) [{card}]", flush=True)
+        # (d) the controller lost: a standby promotes, boots its plane on
+        # the card from its store (replay_records + install), serves.
+        rounds = dp.rounds - r0
+        t_loss = time.perf_counter()
+        controller.stop()
+        out["probe"] = clients.run("PROBE")
+        promote_s = time.perf_counter() - t_loss
+        launches = dict(append_ops.LAUNCHES)
+        rs_launch = dict(rs_ops.LAUNCHES)
+        after = clients.run(f"BULK {BROKER_AFTER_BATCHES}")
+        clients.run("COMMITTED a")
+        reread = clients.run("DRAIN b")
+        clients.run("COMMITTED b")
+        out["promotion"] = dict(promote_s=promote_s, after=after,
+                                reread=reread)
+        print(f"broker path: failover: controller 0 stopped; a standby "
+              f"promoted, booted its plane (--device {DEV}) and every "
+              f"partition "
+              f"led by a live broker with a produce acked "
+              f"{promote_s:.3f} s after the loss; {after['messages']} more "
+              f"msgs {after['appends_per_s']:.1f} appends/s; all "
+              f"{reread['messages']} acked messages read back exactly from "
+              f"the promoted controller ({reread['msgs_per_s']:.1f} msgs/s); "
+              f"committed offsets of both consumer sets equal [{card}]",
+              flush=True)
+        clients.close()
+        standbys.stop()
+        booted = [b for b in (1, 2) if "booting data plane as controller"
+                  in open(os.path.join(root, f"broker-{b}.log")).read()]
+        if len(booted) != 1:
+            raise AssertionError(f"broker path: standbys {booted} booted a "
+                                 f"plane; exactly one should have")
+        # Stores: every sealed segment RS-protected, both standbys hold
+        # every record of the controller's.
+        names = list_segment_files(os.path.join(ctrl_dir, "segments"))
+        sealed = names[:-1]
+        shards = {n: valid_shards(os.path.join(ctrl_dir, "segments"), n)
+                  for n in sealed}
+        if len(sealed) < BROKER_SEALED or any(v != 5 for v in
+                                              shards.values()):
+            raise AssertionError(f"broker path: sealed segments {shards}")
+        if rs_launch["gf_matmul"] < len(sealed):
+            raise AssertionError(f"broker path: {rs_launch} RS launches for "
+                                 f"{len(sealed)} sealed segments")
+        want = store_digest(os.path.join(ctrl_dir, "segments"))
+        for b in (1, 2):
+            have = store_digest(standbys.store_dir(b))
+            if want - have:
+                raise AssertionError(f"broker path: standby {b}'s store "
+                                     f"lacks {sum((want - have).values())} "
+                                     f"of the controller's records")
+        if not launches["append_active_packed"] >= rounds > 0 \
+                or launches["append_active"] != 0:
+            raise AssertionError(f"broker path: append launches {launches} "
+                                 f"for {rounds} rounds of fused + packed")
+        out.update(launches_broker=launches, rs_broker=rs_launch,
+                   rounds=rounds, sealed=len(sealed), promoted=booted[0])
+        print(f"broker path: done in {time.perf_counter() - t_phase:.1f} s: "
+              f"{len(sealed)} sealed {config.segment_bytes / 2**20:g} MiB "
+              f"segments on the controller, 5 "
+              f"CRC-valid shards each, RS launches {rs_launch}; the "
+              f"standbys' stores hold all {sum(want.values())} controller "
+              f"records; append launches {launches} (packed >= {rounds} "
+              f"rounds of the controller) [{card}]", flush=True)
+    finally:
+        if clients is not None:
+            clients.close()
+        if controller is not None and not controller.stopped:
+            controller.stop()
+        standbys.stop()
+    return out
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -2233,7 +2827,14 @@ def main() -> int:
     only.add_argument("--control-only", action="store_true",
                       help="build the kernels and run only the control "
                            "path (a measurement loop: no result line)")
+    only.add_argument("--broker-only", action="store_true",
+                      help="build the kernels and run only the broker "
+                           "path (a measurement loop: no result line)")
+    only.add_argument("--broker-client", metavar="SPEC",
+                      help=argparse.SUPPRESS)  # the broker path's clients
     args = ap.parse_args()
+    if args.broker_client:
+        return broker_client_main(args.broker_client)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs on the GPU "
               "only", file=sys.stderr)
@@ -2255,6 +2856,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
             control_path(args.seed, card, workdir)
         return 0
+    if args.broker_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            broker_path(args.seed, card, workdir, commit_ab=True)
+        return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
     errs["gf_matmul"] = rs_kernel_vs_plain(args.seed)
@@ -2274,14 +2879,17 @@ def main() -> int:
         time_erasure(workdir, card)
         dp_runs = dataplane_path(args.seed, card, workdir)
         ctrl = control_path(args.seed, card, workdir)
+        broker = broker_path(args.seed, card, workdir)
     launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
                    for p, r in dp_runs.items()}
     launches_ctrl = ctrl["launches_control"]
+    launches_broker = broker["launches_broker"]
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=launches[name],
                     launches_dataplane=launches_dp[name],
                     launches_control=launches_ctrl[name],
+                    launches_broker=launches_broker[name],
                     max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],
@@ -2298,6 +2906,7 @@ def main() -> int:
         launches=sum(c["gf_matmul"] for p in by_path.values()
                      for c in p.values()),
         launches_by_path=by_path,
+        launches_broker=broker["rs_broker"]["gf_matmul"],
         max_abs_err=errs["gf_matmul"], ms=enc["ms"],
         wrapper_ms=enc["wrapper_ms"], plain_ms=enc["plain_ms"],
         bound_ms=enc["bound_ms"], bound_by="bytes", library_ms=None,

@@ -10,8 +10,7 @@ Layout:
   section) and GroupLiveness (the metadata leader's volatile heartbeat
   ledger driving evictions).
 - `client.py` — GroupConsumer, the member-side SDK: join/poll/
-  heartbeat/commit-with-fencing/leave over both transports (not yet
-  ported: slice D2).
+  heartbeat/commit-with-fencing/leave over both transports.
 
 Offsets are tracked per GROUP, not per member: every member commits
 under the group's shared consumer name (`group_consumer_name`), so a
@@ -21,8 +20,7 @@ stale generation — a deposed member racing its own rebalance — is a
 typed `fenced_generation` refusal, never a silent overwrite.
 
 Twin of `ripplemq_tpu/groups/__init__.py` (PyTorch port): the same
-exports of the state and coordinator modules; the client re-exports
-raise until slice D2 ports `groups/client.py`.
+exports, importing only the port's modules.
 """
 
 from ripplemq_tpu_torch.groups.coordinator import GroupLiveness, GroupTable
@@ -44,10 +42,12 @@ __all__ = [
 
 
 def __getattr__(name):
-    # GroupConsumer/FencedError live in the client SDK (`groups/client.py`),
-    # which comes with the broker server and clients, slice D2 of the port.
+    # GroupConsumer/FencedError import the client SDK, which imports
+    # this package's state module in turn — resolved lazily so broker-
+    # side imports (manager → coordinator) never drag the client stack
+    # in (and never cycle through ripplemq_tpu_torch.client's re-export).
     if name in ("GroupConsumer", "FencedError"):
-        raise NotImplementedError(
-            f"groups.{name} belongs to groups/client.py, ported with slice "
-            "D2 (the broker server and clients)")
+        from ripplemq_tpu_torch.groups import client
+
+        return getattr(client, name)
     raise AttributeError(name)

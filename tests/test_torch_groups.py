@@ -1,8 +1,9 @@
 """Consumer groups in the port: the twin of the unit tests of
 `tests/test_groups.py` (assignment determinism and stickiness, the
 coordinator's group table, heartbeat eviction), run on the port's
-`groups.state` and `groups.coordinator`. The cluster tests of that file
-need the broker server and wait for slice D2.
+`groups.state` and `groups.coordinator`, and the package's lazy
+re-exports of the client SDK. The cluster tests of that file are in
+`tests/test_torch_group_cluster.py`.
 """
 
 from __future__ import annotations
@@ -112,5 +113,15 @@ def test_liveness_grace_and_eviction():
 
 @pytest.mark.parametrize("name", ["GroupConsumer", "FencedError"])
 def test_client_reexports_name_slice_d2(name):
-    with pytest.raises(NotImplementedError, match="D2"):
-        getattr(groups, name)
+    """The client names that slice D2 ported: `groups.GroupConsumer` and
+    `groups.FencedError` resolve (lazily) to the port's own objects in
+    `groups/client.py`, never to the reference's."""
+    from ripplemq_tpu_torch.groups import client
+
+    obj = getattr(groups, name)
+    assert obj is getattr(client, name)
+    assert obj.__module__ == "ripplemq_tpu_torch.groups.client"
+    if name == "GroupConsumer":
+        import ripplemq_tpu_torch.client as client_pkg
+
+        assert client_pkg.GroupConsumer is obj

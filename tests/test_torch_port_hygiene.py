@@ -12,7 +12,13 @@
   `make_local_fns`, `gf_matmul`, `encode_group`, `encode_segment`,
   `SegmentStore(erasure=True)`, `recover_image`, `DataPlane` and
   `convert.image_from_numpy` raise instead of falling back; a tensor on
-  neither the CPU nor a GPU gets no path.
+  neither the CPU nor a GPU gets no path;
+- so do the broker entry points: `BrokerServer`, `InProcCluster`,
+  `ProcCluster` and `python -m ripplemq_tpu_torch.broker` (which exits
+  nonzero and names `--device cpu`);
+- a flag whose module belongs to a later slice of the port raises
+  `NotImplementedError` naming that slice, as do the chaos harness's
+  names.
 """
 
 from __future__ import annotations
@@ -55,6 +61,17 @@ def test_admission_list_matches_files_on_disk():
     on_disk = {p.stem for p in (REPO / "tests").glob("test_torch_*.py")}
     assert set(PORT_TEST_MODULES) == on_disk
     assert len(PORT_TEST_MODULES) == len(set(PORT_TEST_MODULES))
+
+
+@pytest.mark.parametrize("sub", ["broker", "chaos", "client", "groups",
+                                 "obs", "samples", "slo", "storage"])
+def test_import_scan_covers_subpackage(sub):
+    """The scan below walks every file of the package, the subpackages
+    slice D2 added (client/, slo/, chaos/, samples/) included."""
+    scanned = {p.relative_to(REPO / "ripplemq_tpu_torch").parts[0]
+               for p in _port_sources() if "ripplemq_tpu_torch" in p.parts}
+    assert sub in scanned
+    assert (REPO / "ripplemq_tpu_torch" / sub / "__init__.py").exists()
 
 
 def test_admit_refuses_unlisted_module():
@@ -226,3 +243,115 @@ def test_yaml_is_imported_only_inside_load_cluster_config():
     assert sites == {"ripplemq_tpu_torch/metadata/cluster_config.py":
                      ["load_cluster_config"]}
     assert _yaml_import_sites(ast.parse("import yaml\n")) == [""]
+
+
+# ------------------------------------------------------ broker entry points
+
+
+def _port_cluster_config(**kw):
+    from ripplemq_tpu_torch.chaos.cluster import make_cluster_config
+
+    return make_cluster_config(n_brokers=3, **kw)
+
+
+def test_broker_entry_points_raise_without_device_when_no_gpu(no_gpu,
+                                                               tmp_path):
+    from ripplemq_tpu_torch.broker.server import BrokerServer
+    from ripplemq_tpu_torch.chaos.cluster import InProcCluster
+    from ripplemq_tpu_torch.chaos.proc_cluster import ProcCluster
+    from ripplemq_tpu_torch.wire import InProcNetwork
+
+    config = _port_cluster_config()
+    calls = [
+        lambda: BrokerServer(0, config, net=InProcNetwork()),
+        lambda: BrokerServer(0, config, net=InProcNetwork(),
+                             data_dir=str(tmp_path / "b0")),
+        lambda: InProcCluster(config),
+        lambda: ProcCluster(n_brokers=3, data_dir=str(tmp_path / "proc")),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for the CPU, each builds (nothing started: no threads)
+    b = BrokerServer(0, config, net=InProcNetwork(), device="cpu",
+                     data_dir=str(tmp_path / "b1"))
+    assert b.device == torch.device("cpu")
+    assert b._round_store.device == torch.device("cpu")
+    b._round_store.close()  # never started: nothing else to stop
+    cluster = InProcCluster(config, device="cpu")
+    assert {x.device for x in cluster.brokers.values()} == {
+        torch.device("cpu")}
+    assert ProcCluster(n_brokers=3, data_dir=str(tmp_path / "proc"),
+                       device="cpu").device == "cpu"
+
+
+def _run_cli(tmp_path, *args, env_extra=None):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from ripplemq_tpu_torch.chaos.proc_cluster import (
+        _config_yaml_dict,
+        free_ports,
+        make_proc_cluster_config,
+    )
+
+    cfg_path = tmp_path / "cluster.json"
+    cfg_path.write_text(json.dumps(_config_yaml_dict(
+        make_proc_cluster_config(free_ports(3)))))
+    env = dict(os.environ, PYTHONPATH=str(REPO), **(env_extra or {}))
+    return subprocess.run(
+        [sys.executable, "-m", "ripplemq_tpu_torch.broker", "--id", "0",
+         "--config", str(cfg_path), *args],
+        env=env, cwd=str(REPO), capture_output=True, text=True, timeout=120)
+
+
+def test_cli_without_device_exits_nonzero_when_no_gpu(tmp_path):
+    # CUDA_VISIBLE_DEVICES="" hides any GPU from the child, so the
+    # default (CUDA) finds none wherever this runs.
+    out = _run_cli(tmp_path, env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "--device cpu" in out.stderr, out.stderr
+
+
+@pytest.mark.parametrize("args", [
+    ("--coordinator", "127.0.0.1:1234"),
+    ("--num-hosts", "2"),
+    ("--engine-workers", "127.0.0.1:1235"),
+    ("--engine-mode", "spmd"),
+], ids=lambda a: a[0].lstrip("-"))
+def test_cli_multi_device_flags_name_slice_f(tmp_path, args):
+    out = _run_cli(tmp_path, "--device", "cpu", *args)
+    assert out.returncode == 2
+    assert "slice F" in out.stderr, out.stderr
+
+
+@pytest.mark.parametrize("kw,slice_", [
+    ({"config": {"host_workers": 2}}, "slice E"),
+    ({"config": {"follower_reads": True}}, "slice E"),
+    ({"config": {"replication": "striped"}}, "slice E"),
+    ({"engine_mode": "spmd"}, "slice F"),
+    ({"engine_workers": ["127.0.0.1:1"]}, "slice F"),
+], ids=["host_workers", "follower_reads", "striped", "spmd",
+        "engine_workers"])
+def test_server_later_slice_flags_raise(kw, slice_):
+    from ripplemq_tpu_torch.broker.server import BrokerServer
+    from ripplemq_tpu_torch.wire import InProcNetwork
+
+    config = _port_cluster_config(**kw.get("config", {}))
+    extra = {k: v for k, v in kw.items() if k != "config"}
+    with pytest.raises(NotImplementedError, match=slice_):
+        BrokerServer(0, config, net=InProcNetwork(), device="cpu", **extra)
+
+
+@pytest.mark.parametrize("name", [
+    "run_chaos", "run_kill_all_drill", "History", "check_history",
+    "check_group_history", "Nemesis", "make_schedule"])
+def test_chaos_harness_names_slice_e(name):
+    import ripplemq_tpu_torch.chaos as chaos
+
+    with pytest.raises(NotImplementedError, match="slice E"):
+        getattr(chaos, name)
+    assert "ripplemq_tpu_torch.chaos.harness" not in __import__(
+        "sys").modules

@@ -20,23 +20,37 @@ from ripplemq_tpu.analysis import markers
 
 PORT_TEST_MODULES = (
     "test_torch_append",
+    "test_torch_broker",
     "test_torch_chain_settle",
+    "test_torch_client",
+    "test_torch_controller_failover",
     "test_torch_dataplane",
     "test_torch_dataplane_parity",
     "test_torch_engine",
+    "test_torch_failover",
+    "test_torch_group_cluster",
+    "test_torch_group_waves",
     "test_torch_groups",
     "test_torch_hostraft",
+    "test_torch_idempotence",
     "test_torch_manager",
     "test_torch_metadata",
     "test_torch_obs",
     "test_torch_port_hygiene",
+    "test_torch_process_cluster",
     "test_torch_read_cache",
+    "test_torch_repl_pipeline",
     "test_torch_replication",
     "test_torch_retention",
+    "test_torch_retry_policy",
     "test_torch_rs",
+    "test_torch_server_parity",
+    "test_torch_settled_gap",
+    "test_torch_slo",
     "test_torch_step",
     "test_torch_storage",
     "test_torch_stripes",
+    "test_torch_term_skew",
     "test_torch_wire",
 )
 
