@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch port (`ripplemq_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
-                          [--dataplane-only | --control-only | --broker-only]
+    python3 chip_smoke.py [--seed N] [--dataplane-only | --control-only
+                                      | --broker-only | --planes-only]
 
 `--dataplane-only` builds the kernels and runs only phase 8,
-`--control-only` only phase 9 and `--broker-only` only phase 10, without
-the result line: loops for measuring the DataPlane, the control path and
-the broker path (`--broker-only` also times the consumers' drain with the
-reference's auto-commit against the port's). Runs only where
+`--control-only` only phase 9, `--broker-only` only phase 10 and
+`--planes-only` only phase 11 (after the RS kernel's check at the stripe
+ladder's widths), without the result line: loops for measuring the
+DataPlane, the control path, the broker path (`--broker-only` also times
+the consumers' drain with the reference's auto-commit against the
+port's) and the planes path. Runs only where
 `torch.cuda.is_available()`; exits nonzero at once
 elsewhere, and when run outside a checkout of the repository (the port's
 package must be importable next to it). Every phase prints one line; a
@@ -37,7 +39,9 @@ phase that fails raises, and the script exits nonzero with no result.
    matrix and all 10 reconstruct inverses, every pair of input and output
    row offsets in {0, 1, 7, 15} bytes at widths 1, 15, 16, 17, 33, 4095,
    4097 (and the full width for the encode), small odd and aligned
-   widths, a 16x16 matrix, and N = 0 (no launch);
+   widths, a 16x16 matrix, N = 0 (no launch), and every class of the
+   stripe codec's ladder (512 B to 2,840,576 B, an 8 MiB group commit's
+   shard), the encode and a 3x3 reconstruct;
 4. agreement on a small input: the engine on the GPU (kernel) and on the
    CPU (plain version) replay one scenario to equal state;
 5. the engine's main path, once per binding (legacy; fused_control +
@@ -140,17 +144,42 @@ phase that fails raises, and the script exits nonzero with no result.
    RS launch each; both standbys' stores hold every record of the
    controller's; the packed append launched at least once a controller
    round and the legacy variant never;
-11. times: each kernel's device time alone (the profiler's events by
+11. the planes path: the broker path's topology and engine with slice
+   E's planes on: five brokers (examples/cluster.yaml's roster: the
+   controller in this process and 4 standby processes), striped
+   replication (`standby_count` 4: RS(3,2) stripes of every group commit
+   to distinct standbys), follower reads, two host workers a broker (the
+   controller's workers spawned from this script, which their re-run of
+   it keeps torch-free; every worker process checked from outside for
+   torch and JAX libraries). Traffic: 16 x 250 awaited single-message
+   produces through the host workers; a bulk backlog of 8 producers x
+   window 16 x 96 batches of 512 (rounds of up to 8 MiB, so a group
+   commit reaches the sender's cap); 16 `follower_reads` consumers
+   reading 256 messages an answer, every acked message once, byte-exact,
+   at its acked offset, some answers from leased followers that decode
+   striped groups on a read miss; then the controller stopped: a standby
+   promotes, gathers the missing stripes (`stripe.fetch`), rebuilds its
+   store and boots its plane on the card; more bulk, every acked message
+   read back again. Gates: no follower answer past its floor, a decode
+   on some standby, a rebuild on the promoted one, one RS launch at
+   least per group commit on the controller, its host workers alive and
+   serving, the packed append at least once a round. Every encode width
+   past the ladder is checked against the plain version. Then one
+   seed-0 chaos run (`run_chaos`, proc backend, striped, follower reads,
+   2 host workers, on the card) with no violation;
+12. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
-12. a JSON line naming each ported kernel (gf_matmul's launches split by
+   the stripe encode at the ladder's 16 KiB and top classes;
+13. a JSON line naming each ported kernel (gf_matmul's launches split by
    consumer and by path; the append variants' launches on the dataplane
    path as `launches_dataplane`, on the control path as
    `launches_control`, and each kernel's on the broker path as
-   `launches_broker`), then the card line again, then the result line
+   `launches_broker` and on the planes path as `launches_planes`), then
+   the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
 
@@ -171,54 +200,60 @@ import threading
 import time
 import zlib
 
-import numpy as np
-import torch
+# The planes path's controller runs host-plane workers, which are
+# spawned: spawn re-runs this script as `__mp_main__` in every worker
+# before it unpickles the worker's target, and the workers must stay
+# torch-free (as the reference's stay jax-free). That re-run skips these.
+if __name__ != "__mp_main__":
+    import numpy as np
+    import torch
 
-from ripplemq_tpu_torch import convert
-from ripplemq_tpu_torch.broker import dataplane
-from ripplemq_tpu_torch.broker.hostraft import LEADER, RaftNode, RaftRunner
-from ripplemq_tpu_torch.broker.manager import (
-    OP_BATCH,
-    OP_SET_STANDBYS,
-    OP_SET_TOPICS,
-    PartitionManager,
-)
-from ripplemq_tpu_torch.broker.replication import RoundReplicator
-from ripplemq_tpu_torch.broker.server import (
-    BrokerServer,
-    _ReplStreamGate,
-    apply_repl_rounds,
-    flush_repl_store,
-)
-from ripplemq_tpu_torch.core.config import ALIGN, ROW_HEADER, EngineConfig
-from ripplemq_tpu_torch.core.encode import decode_entries, row_extents
-from ripplemq_tpu_torch.core.state import StepInput
-from ripplemq_tpu_torch.metadata.cluster_config import ClusterConfig
-from ripplemq_tpu_torch.metadata.models import (
-    BrokerInfo,
-    Topic,
-    placement_only,
-    topics_to_wire,
-)
-from ripplemq_tpu_torch.ops import append as append_ops
-from ripplemq_tpu_torch.ops import cuda_build
-from ripplemq_tpu_torch.ops import rs as rs_ops
-from ripplemq_tpu_torch.parallel.engine import make_local_fns
-from ripplemq_tpu_torch.storage import erasure
-from ripplemq_tpu_torch.storage.segment import (
-    REC_APPEND,
-    REC_OFFSETS,
-    REC_STRIPE,
-    SegmentStore,
-)
-from ripplemq_tpu_torch.stripes.codec import (
-    encode_group,
-    parse_frame,
-    reconstruct_group,
-    stripe_assignment,
-)
-from ripplemq_tpu_torch.stripes.recovery import rebuild_records
-from ripplemq_tpu_torch.wire.transport import TcpClient, TcpServer
+    from ripplemq_tpu_torch import convert
+    from ripplemq_tpu_torch.broker import dataplane
+    from ripplemq_tpu_torch.broker.hostraft import LEADER, RaftNode, RaftRunner
+    from ripplemq_tpu_torch.broker.manager import (
+        OP_BATCH,
+        OP_SET_STANDBYS,
+        OP_SET_TOPICS,
+        PartitionManager,
+    )
+    from ripplemq_tpu_torch.broker.replication import RoundReplicator
+    from ripplemq_tpu_torch.broker.server import (
+        BrokerServer,
+        _ReplStreamGate,
+        apply_repl_rounds,
+        flush_repl_store,
+    )
+    from ripplemq_tpu_torch.core.config import ALIGN, ROW_HEADER, EngineConfig
+    from ripplemq_tpu_torch.core.encode import decode_entries, row_extents
+    from ripplemq_tpu_torch.core.state import StepInput
+    from ripplemq_tpu_torch.metadata.cluster_config import ClusterConfig
+    from ripplemq_tpu_torch.metadata.models import (
+        BrokerInfo,
+        Topic,
+        placement_only,
+        topics_to_wire,
+    )
+    from ripplemq_tpu_torch.ops import append as append_ops
+    from ripplemq_tpu_torch.ops import cuda_build
+    from ripplemq_tpu_torch.ops import rs as rs_ops
+    from ripplemq_tpu_torch.parallel.engine import make_local_fns
+    from ripplemq_tpu_torch.storage import erasure
+    from ripplemq_tpu_torch.storage.segment import (
+        REC_APPEND,
+        REC_OFFSETS,
+        REC_STRIPE,
+        SegmentStore,
+    )
+    from ripplemq_tpu_torch.stripes import codec as stripe_codec
+    from ripplemq_tpu_torch.stripes.codec import (
+        encode_group,
+        parse_frame,
+        reconstruct_group,
+        stripe_assignment,
+    )
+    from ripplemq_tpu_torch.stripes.recovery import rebuild_records
+    from ripplemq_tpu_torch.wire.transport import TcpClient, TcpServer
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
@@ -792,6 +827,47 @@ def rs_matrices():
 
 RS_WIDTHS = (1, 15, 16, 17, 33, 4095, 4097)
 RS_OFFSETS = (0, 1, 7, 15)
+RS_LADDER_INV = (2, 3, 4)  # the stripes a 3x3 reconstruct decodes from
+
+
+def stripe_ladder() -> list:
+    """The stripe codec's shard-length classes (`stripes/codec.py`
+    `_shard_class`): 512 B steps to 16 KiB, then x1.25 up to the class
+    of an 8 MiB group commit's shard (2,840,576 B) — the widths of the
+    planes path's encodes and reconstructs."""
+    from ripplemq_tpu_torch.stripes.plane import _GROUP_COMMIT_BYTES
+
+    top = stripe_codec._shard_class(-(-_GROUP_COMMIT_BYTES // 3))
+    out, c = [], stripe_codec._PACK
+    while c <= top:
+        out.append(c)
+        c = stripe_codec._shard_class(c + 1)
+    return out
+
+
+def rs_widths_vs_plain(widths, seed, label) -> int:
+    """The GF(2^8) kernel against its plain version (torch.equal) at
+    each width: the stripe encode (2x3) and a 3x3 reconstruct (stripes
+    2, 3 and 4 surviving)."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    enc, inverses = rs_matrices()
+    inv = inverses[RS_LADDER_INV]
+    for n in widths:
+        s = torch.empty((3, n), dtype=torch.uint8, device=DEV).random_(
+            generator=g)
+        for name, m in (("encode", enc), ("reconstruct", inv)):
+            got, want = rs_ops.gf_matmul(m, s), rs_ops.gf_matmul_plain(m, s)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                err = int((got.to(torch.int16) - want.to(torch.int16))
+                          .abs().max())
+                raise AssertionError(f"gf_matmul {name} N={n} disagrees "
+                                     f"with its plain version "
+                                     f"(max_abs_err {err})")
+    print(f"kernel-vs-plain: gf_matmul {label}: {len(widths)} widths "
+          f"({widths[0]} .. {widths[-1]} B), encode 2x3 and reconstruct "
+          f"3x3 each equal, max_abs_err=0", flush=True)
+    return 0
 
 
 def rs_kernel_vs_plain(seed) -> int:
@@ -800,7 +876,8 @@ def rs_kernel_vs_plain(seed) -> int:
     10 inverses; every pair of input and output row offsets in
     {0, 1, 7, 15} bytes at ragged and small widths and at the full
     width; small odd and aligned widths, the largest tiled matrix, and
-    N = 0 (no launch)."""
+    N = 0 (no launch); every class of the stripe ladder, encode and
+    reconstruct."""
     g = torch.Generator(device=DEV).manual_seed(seed + 3)
     rng = np.random.default_rng(seed + 3)
 
@@ -871,6 +948,8 @@ def rs_kernel_vs_plain(seed) -> int:
           f"{paths}, max_abs_err=0", flush=True)
     if not all(paths.values()):
         raise AssertionError(f"the offset pairs missed a path: {paths}")
+    rs_widths_vs_plain(stripe_ladder(), seed,
+                       "the stripe ladder (every shard class)")
     before = rs_ops.LAUNCHES["gf_matmul"]
     empty = rs_ops.gf_matmul(enc, rand(3, 0))
     if tuple(empty.shape) != (2, 0) or rs_ops.LAUNCHES["gf_matmul"] != before:
@@ -888,29 +967,38 @@ def time_rs(seed, card) -> dict:
     stripe codec's padded widths take), encode and 3x3 reconstruct: the
     kernel alone (profiler) and through the wrapper (CUDA events), the
     inputs rotated over 3 buffers (>= 200 MB) so that they come from HBM;
-    beside the plain version and the byte bound. No single PyTorch call
-    computes a GF(2^8) product, so there is no library time."""
+    beside the plain version and the byte bound; then the stripe encode
+    at two of the planes path's widths, the top of the linear ladder
+    (16 KiB) and an 8 MiB group commit's class (2,840,576 B), rotated
+    over enough inputs (>= 64 MB) to pass the L2 too. No single PyTorch
+    call computes a GF(2^8) product, so there is no library time."""
     g = torch.Generator(device=DEV).manual_seed(seed + 4)
     enc, inverses = rs_matrices()
     inv = inverses[(1, 2, 3)]
     aligned_n = -(-SHARD_N // 16) * 16
+    ladder = stripe_ladder()
     out = {}
     for label, m, n in (("encode", enc, SHARD_N),
                         ("reconstruct", inv, SHARD_N),
                         ("encode_aligned", enc, aligned_n),
-                        ("reconstruct_aligned", inv, aligned_n)):
+                        ("reconstruct_aligned", inv, aligned_n),
+                        ("encode_ladder_16k", enc, 16 << 10),
+                        ("encode_ladder_top", enc, ladder[-1])):
+        # Enough buffers to pass the 50 MB L2 at every width.
+        nrot = max(ROTATE, -(-(64 << 20) // (len(m[0]) * n)))
         rot = [torch.empty((len(m[0]), n), dtype=torch.uint8,
                            device=DEV).random_(generator=g)
-               for _ in range(ROTATE)]
+               for _ in range(nrot)]
         turn = itertools.count()
 
         def launch():
-            rs_ops.gf_matmul(m, rot[next(turn) % ROTATE])
+            rs_ops.gf_matmul(m, rot[next(turn) % nrot])
 
         path = "vec16" if n % 16 == 0 else "realign"
+        reps = 60 if n > ladder[-1] else 200
         kernel_ms = kernel_only_ms(launch, f"gf_matmul_{path}_kernel",
-                                   reps=60)
-        wrapper_ms = cuda_time_ms(launch, reps=60)
+                                   reps=reps)
+        wrapper_ms = cuda_time_ms(launch, reps=reps)
         plain_ms = cuda_time_ms(lambda: rs_ops.gf_matmul_plain(m, rot[0]),
                                 reps=5)
         moved = (len(m) + len(m[0])) * n
@@ -2317,15 +2405,16 @@ def run_threads(what: str, n: int, work) -> float:
 
 
 def broker_client_main(spec_path: str) -> int:
-    """The broker path's client process (`chip_smoke.py --broker-client
-    SPEC`): the port's ProducerClient and ConsumerClient, driven phase by
-    phase over a line protocol on stdin/stdout (LAT, BULK n, DRAIN tag
-    [ref], COMMITTED tag, BEHIND tag, PROBE, EXIT -> `RESULT <json>`), as
-    bench.py's `_e2e_client_main` runs them. It keeps every acked message
-    at its acked offset and checks each read against them."""
+    """The broker and planes paths' client process (`chip_smoke.py
+    --broker-client SPEC`): the port's ProducerClient and ConsumerClient,
+    driven phase by phase over a line protocol on stdin/stdout (LAT, BULK
+    n, DRAIN tag [ref | follower], COMMITTED tag, BEHIND tag, PROBE, EXIT
+    -> `RESULT <json>`), as bench.py's `_e2e_client_main` runs them. It
+    keeps every acked message at its acked offset and checks each read
+    against them."""
     from ripplemq_tpu_torch.client.consumer import ConsumerClient
     from ripplemq_tpu_torch.client.metadata import MetadataManager
-    from ripplemq_tpu_torch.client.producer import ProducerClient
+    from ripplemq_tpu_torch.client.producer import ProduceError, ProducerClient
     from ripplemq_tpu_torch.wire.transport import TcpClient
 
     class ReferenceCommits(ConsumerClient):
@@ -2359,6 +2448,10 @@ def broker_client_main(spec_path: str) -> int:
         spec = json.load(f)
     boot, P, seed = spec["bootstrap"], int(spec["partitions"]), spec["seed"]
     B, read_batch = int(spec["max_batch"]), int(spec["read_batch"])
+    # The follower drain's answer size: below read_batch, so that a
+    # partition takes several answers and the readahead after a full one
+    # goes to a leased follower (the client's routing rule).
+    drain_max = int(spec.get("drain_max", read_batch))
     acked = Acked(P)
     committed = {}  # drain tag -> {partition: the offset its reader committed}
     bulk_round = [0]
@@ -2395,6 +2488,24 @@ def broker_client_main(spec_path: str) -> int:
 
         def worker(tid):
             pc = ProducerClient(boot, rpc_timeout_s=120.0)
+
+            def wait(p, msgs, w) -> int:
+                """The batch's base offset. A batch refused because its
+                broker's host worker died (a typed refusal: the batch
+                never reached the data plane) is sent again, as a
+                windowed sender does."""
+                deadline = time.monotonic() + BROKER_WAIT_S
+                while True:
+                    try:
+                        return w()
+                    except ProduceError as e:
+                        if (not str(e).startswith("worker_unavailable")
+                                or time.monotonic() > deadline):
+                            raise
+                    time.sleep(0.2)
+                    w = pc.produce_batch_async(BROKER_TOPIC, msgs,
+                                               partition=p)
+
             try:
                 rng = np.random.default_rng(seed * 7919 + tid)
                 filler = rng.integers(0, 256, PAYLOAD_BYTES,
@@ -2403,7 +2514,7 @@ def broker_client_main(spec_path: str) -> int:
                 for k in range(k0, k0 + batches):
                     while len(pending) >= BROKER_WINDOW:
                         p, msgs, w = pending.popleft()
-                        acked.add(p, w(), msgs)
+                        acked.add(p, wait(p, msgs, w), msgs)
                     p = (tid + BROKER_PRODUCERS * k) % P
                     msgs = [payload(100 + tid, k * B + i, filler)
                             for i in range(B)]
@@ -2411,7 +2522,7 @@ def broker_client_main(spec_path: str) -> int:
                         BROKER_TOPIC, msgs, partition=p)))
                 while pending:
                     p, msgs, w = pending.popleft()
-                    acked.add(p, w(), msgs)
+                    acked.add(p, wait(p, msgs, w), msgs)
             finally:
                 pc.close()
 
@@ -2423,19 +2534,34 @@ def broker_client_main(spec_path: str) -> int:
         """Every partition read from 0 by a consumer with auto-commit:
         each answer must be exactly the acked messages in [offset,
         next_offset), so every acked message comes back once, byte-exact,
-        at its acked offset. `logic` "ref": the reference's commits."""
+        at its acked offset. `logic` "ref": the reference's commits;
+        "follower": `follower_reads=True` consumers reading `drain_max`
+        messages an answer (counting the answers followers served)."""
         client = ReferenceCommits if logic == "ref" else ConsumerClient
+        follower = logic == "follower"
         ends = {}
         got = [0] * BROKER_CONSUMERS
+        answers = [0] * BROKER_CONSUMERS
+        by_follower = [0] * BROKER_CONSUMERS
 
-        def walk(cc, p: int) -> int:
+        def walk(cc, p: int, tid: int) -> int:
             want = sorted(acked.by_part[p])
             i = n = 0
             off = 0
+            ends[p] = 0  # where the reader committed: the end of its last
+            #              answer with messages (auto-commit skips empty ones)
             for _ in range(len(want) + 64):
                 msgs, pp, start, nxt = cc.consume_with_position(
                     BROKER_TOPIC, partition=p)
-                if pp != p or start != off:
+                answers[tid] += 1
+                by_follower[tid] += cc.last_from_follower
+                # A read may start below `off` only across a gap the
+                # reader already passed: a follower answers a gap with
+                # an empty advance, which commits nothing, so a leader
+                # read after it starts at the committed offset, below
+                # the gap. It must re-deliver no acked message.
+                if pp != p or start > off or (
+                        start < off and i and want[i - 1][0] >= start):
                     raise AssertionError(f"partition {p}: read at {start} "
                                          f"(partition {pp}), expected {off}")
                 if not msgs and nxt <= off:
@@ -2449,17 +2575,20 @@ def broker_client_main(spec_path: str) -> int:
                         f"to {nxt}, acked {j - i} in that window")
                 n += len(msgs)
                 i, off = j, nxt
+                if msgs:
+                    ends[p] = nxt
             if i != len(want):
                 raise AssertionError(f"partition {p}: read {i} of "
                                      f"{len(want)} acked messages")
-            ends[p] = off
             return n
 
         def worker(tid):
-            cc = client(boot, f"chip-{tag}-{tid}", max_messages=read_batch,
-                        rpc_timeout_s=60.0, prefetch=1)
+            kw = dict(follower_reads=True) if follower else {}
+            cc = client(boot, f"chip-{tag}-{tid}",
+                        max_messages=drain_max if follower else read_batch,
+                        rpc_timeout_s=60.0, prefetch=1, **kw)
             try:
-                got[tid] = sum(walk(cc, p)
+                got[tid] = sum(walk(cc, p, tid)
                                for p in range(tid, P, BROKER_CONSUMERS))
             finally:
                 cc.close()  # flushes the in-flight auto-commits
@@ -2469,7 +2598,8 @@ def broker_client_main(spec_path: str) -> int:
             raise AssertionError(f"read {sum(got)} of {acked.count()}")
         committed[tag] = ends
         return dict(messages=sum(got), msgs_per_s=sum(got) / secs,
-                    seconds=secs)
+                    seconds=secs, answers=sum(answers),
+                    follower_answers=sum(by_follower))
 
     def committed_offsets(tag: str) -> list:
         """(partition, committed as the brokers answer it, committed by
@@ -2801,6 +2931,375 @@ def broker_path(seed, card, workdir, commit_ab=False) -> dict:
     return out
 
 
+# ------------------------------------------------ the planes path
+
+# bench.py's e2e topology with slice E's planes on: the 5-broker roster
+# of examples/cluster.yaml:15-19 (controller + 4 standbys, the shape of
+# bench.py's _run_repl_bytes, :2145-2177), striped replication,
+# follower reads (the consume_fanout arm, bench.py:1806-1811) and two
+# host workers a broker (the host-plane sweep's axis, bench.py:1408).
+PLANES_BROKERS = 5
+PLANES_STANDBYS = 4
+PLANES_HOST_WORKERS = 2
+PLANES_BATCHES = 96           # bulk batches per producer (a depth cut)
+PLANES_AFTER_BATCHES = 16     # bulk batches per producer after the failover
+PLANES_DRAIN_MAX = 256        # messages a follower-drain answer
+# The stripe sender's stages beside bench.py's: encode, one repl.stripes
+# frame round trip (the striped twin of repl.frame_us), rounds a group.
+PLANES_STAGES = E2E_STAGES + ("stripes.encode_us", "stripes.frame_us",
+                              "stripes.group_rounds")
+# (e): the reference's steady proc seed (tests/test_proc_chaos.py:27) on
+# the card, striped, with follower reads and host workers.
+PLANES_CHAOS = dict(seed=0, phases=2, phase_s=0.8, ops_per_phase=2,
+                    backend="proc", replication_mode="striped",
+                    follower_reads=True, host_workers=2,
+                    converge_timeout_s=120.0)
+TORCH_LIBS = ("libtorch", "libc10", "jaxlib", "xla_extension")
+
+
+def planes_raw_config(ports) -> dict:
+    """The planes path's cluster config, as the broker CLI loads it."""
+    raw = broker_raw_config(ports)
+    raw.update(host_workers=PLANES_HOST_WORKERS, replication="striped",
+               standby_count=PLANES_STANDBYS, follower_reads=True)
+    return raw
+
+
+def mapped_libs(pid: int) -> list:
+    """The torch or JAX shared objects mapped into process `pid`, read
+    from outside it (/proc/<pid>/maps)."""
+    with open(f"/proc/{pid}/maps") as f:
+        paths = {line.split()[-1] for line in f if "/" in line}
+    return sorted(p for p in paths
+                  if any(lib in os.path.basename(p) for lib in TORCH_LIBS))
+
+
+def child_pids(pid: int) -> list:
+    out = []
+    for tid in os.listdir(f"/proc/{pid}/task"):
+        try:
+            with open(f"/proc/{pid}/task/{tid}/children") as f:
+                out += [int(c) for c in f.read().split()]
+        except OSError:
+            pass
+    return out
+
+
+def worker_boot_ms(hp, t0: float) -> list:
+    """Each host worker's boot: ms from `t0` until it answers a ping."""
+    out = []
+    for w in hp._workers:
+        while True:
+            try:
+                w.request({"op": "ping"}, 0.5)
+                break
+            except Exception:
+                if time.perf_counter() - t0 > BROKER_WAIT_S:
+                    raise
+                time.sleep(0.005)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def log_ts(path: str, needle: str) -> float:
+    """The epoch time of the first JSON log line whose message holds
+    `needle`."""
+    with open(path) as f:
+        for line in f:
+            if needle in line:
+                try:
+                    return float(json.loads(line)["ts"])
+                except (ValueError, KeyError):
+                    continue
+    raise AssertionError(f"{path}: no log line holds {needle!r}")
+
+
+def planes_path(seed, card, workdir) -> dict:
+    """Phase 11 (see the module docstring): the broker path's topology
+    with striped replication over 4 standbys, follower reads and 2 host
+    workers a broker; traffic, a fan-out consume through leased
+    followers, a controller failover rebuilt from stripes, read-back,
+    then a seed-0 chaos drill on the card."""
+    from ripplemq_tpu_torch.chaos import run_chaos
+    from ripplemq_tpu_torch.chaos.proc_cluster import ProcCluster, free_ports
+    from ripplemq_tpu_torch.metadata.cluster_config import (
+        load_cluster_config,
+        parse_cluster_config,
+    )
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "planes-path")
+    raw = planes_raw_config(free_ports(PLANES_BROKERS))
+    config = parse_cluster_config(raw)
+    cfg, P = config.engine, config.engine.partitions
+    standbys = ProcCluster(config=config, data_dir=root, device=DEV)
+    if load_cluster_config(standbys.config_path) != config:
+        raise AssertionError("planes path: the standbys' config file "
+                             "differs from the controller's config")
+    ctrl_dir = os.path.join(root, "broker-0")
+    peers = range(1, PLANES_BROKERS)
+    admin = TcpClient()
+    controller = clients = None
+    widths = []  # the encode width of every stripe group (the codec's)
+    codec_gf = stripe_codec.gf_matmul
+
+    def recording_gf(m, shards, **kw):
+        widths.append(int(shards.shape[1]))
+        return codec_gf(m, shards, **kw)
+
+    def stats_of(b) -> dict:
+        if b == 0:
+            return controller.dispatch({"type": "admin.stats"})
+        return admin.call(config.brokers[b].address, {"type": "admin.stats"},
+                          timeout=30.0)
+
+    def cluster_views() -> dict:
+        views = {}
+        for b in range(PLANES_BROKERS):
+            try:
+                st = stats_of(b)
+                views[b] = dict(metadata=st["metadata"],
+                                controller=st["controller"], live=st["live"],
+                                duty_errors=st["duty_errors"][-3:])
+            except Exception as e:
+                views[b] = repr(e)
+        return views
+
+    out = {}
+    stripe_codec.gf_matmul = recording_gf
+    try:
+        t_boot = time.perf_counter()
+        controller = BrokerServer(0, config, net=None, data_dir=ctrl_dir,
+                                  device=DEV)
+        controller.start()
+        boot_ms = worker_boot_ms(controller.hostplane, t_boot)
+        for b in peers:
+            standbys.restart(b)  # a fresh broker process; 0 is this one
+        m0 = controller.manager
+
+        def ready():
+            dp = controller.dataplane
+            tops = m0.get_topics()
+            leases = m0.current_follower_leases()
+            return (dp is not None and tops
+                    and len(m0.current_standbys()) == PLANES_STANDBYS
+                    and len(leases) >= PLANES_STANDBYS
+                    and all(a.leader is not None
+                            for t in tops for a in t.assignments))
+
+        try:
+            wait_for(ready, "planes path: every partition led, 4 standbys "
+                     "joined and leased", BROKER_WAIT_S)
+        except TimeoutError as e:
+            raise AssertionError(f"{e}; each broker's metadata and "
+                                 f"controller view: {cluster_views()}")
+        dp = controller.dataplane
+        if dp.device.type != torch.device(DEV).type:
+            raise AssertionError(f"planes path: plane on {dp.device}")
+        dp.warm(buckets=dp.all_buckets())
+        wt = controller._warm_thread
+        if wt is not None:
+            wt.join(timeout=BROKER_WAIT_S)
+        # Host workers: torch-free, read from outside each process.
+        workers = {f"controller worker {w.idx}": w.proc.pid
+                   for w in controller.hostplane._workers}
+        for b in peers:
+            for c in child_pids(standbys.brokers[b].proc.pid):
+                workers[f"broker {b} child {c}"] = c
+        torch_in = {k: mapped_libs(pid) for k, pid in workers.items()}
+        if len(workers) < PLANES_HOST_WORKERS * PLANES_BROKERS or any(
+                torch_in.values()):
+            raise AssertionError(f"planes path: host workers {workers} map "
+                                 f"torch or JAX: {torch_in}")
+        st = stats_of(0)
+        print(f"planes path: boot: controller BrokerServer 0 on {dp.device} "
+              f"(P={P} R={cfg.replicas} slots={cfg.slots} B={cfg.max_batch} "
+              f"SB={cfg.slot_bytes}, fused_control + packed_writes), "
+              f"replication {st['stripe_mode']} over standbys "
+              f"{list(m0.current_standbys())} (stripe holders "
+              f"{st['stripe_holders']}), follower leases "
+              f"{m0.current_follower_leases()}, host workers "
+              f"{PLANES_HOST_WORKERS} a broker; controller workers booted "
+              f"in {[round(x, 1) for x in boot_ms]} ms; {len(workers)} "
+              f"worker processes map no torch or JAX library; warmed, in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        clients = BrokerClients(dict(
+            bootstrap=[b.address for b in config.brokers], partitions=P,
+            max_batch=cfg.max_batch, read_batch=cfg.read_batch, seed=seed,
+            drain_max=PLANES_DRAIN_MAX), root)
+
+        def counters():
+            return controller.dispatch(
+                {"type": "admin.metrics"})["metrics"]["counters"]
+
+        # The main path: counts zeroed just before, read just after.
+        c0 = counters()
+        append_ops.reset_launches()
+        rs_ops.reset_launches()
+        widths.clear()
+        r0 = dp.rounds
+        out["latency"] = lat = clients.run("LAT")
+        out["bulk"] = bulk = clients.run(f"BULK {PLANES_BATCHES}")
+
+        def settled_tail():  # the last m stripes stream past the settle
+            a = counters().get("stripes.bytes", 0)
+            time.sleep(0.3)
+            return counters().get("stripes.bytes", 0) == a
+
+        wait_for(settled_tail, "planes path: the stripe stream drained",
+                 BROKER_WAIT_S)
+        c1 = counters()
+        out["drain"] = drain = clients.run("DRAIN a follower")
+        clients.run("COMMITTED a")
+        rounds = dp.rounds - r0
+        launches = dict(append_ops.LAUNCHES)
+        rs_launch = dict(rs_ops.LAUNCHES)
+        encoded = list(widths)
+        # Group commits over the same window as the launches: the
+        # drain's offset commits are rounds too.
+        groups = counters().get("stripes.groups", 0) - c0.get(
+            "stripes.groups", 0)
+        stripe_bytes = c1.get("stripes.bytes", 0) - c0.get("stripes.bytes",
+                                                           0)
+        acked_bytes = (lat["messages"] + bulk["messages"]) * PAYLOAD_BYTES
+        hists = controller.dispatch(
+            {"type": "admin.metrics"})["metrics"]["histograms"]
+        stages = {s: hists[s]["mean"] for s in PLANES_STAGES if s in hists}
+        stats = {b: stats_of(b) for b in range(PLANES_BROKERS)}
+        follower = {b: s["follower"] for b, s in stats.items()}
+        hp = stats[0]["host_plane"]
+        # Gates (a)-(c).
+        past = {b: f.get("answers_past_floor", 0)
+                for b, f in follower.items()}
+        decoded = {b: follower[b].get("striped", {}).get("decoded_groups", 0)
+                   for b in peers}
+        if any(past.values()):
+            raise AssertionError(f"planes path: answers past the floor "
+                                 f"{past}")
+        if not drain["follower_answers"]:
+            raise AssertionError("planes path: no consume answer came from "
+                                 "a follower")
+        if not any(decoded.values()):
+            raise AssertionError(f"planes path: no standby decoded a group "
+                                 f"on read ({decoded})")
+        if not 0 < groups <= rs_launch["gf_matmul"]:
+            raise AssertionError(f"planes path: {groups} stripe groups, RS "
+                                 f"launches {rs_launch}")
+        if not (hp["workers"] == hp["alive"] == PLANES_HOST_WORKERS
+                and hp["served"] > 0):
+            raise AssertionError(f"planes path: controller host plane {hp}")
+        if not launches["append_active_packed"] >= rounds > 0 \
+                or launches["append_active"] != 0:
+            raise AssertionError(f"planes path: append launches {launches} "
+                                 f"for {rounds} rounds of fused + packed")
+        out.update(launches_planes=launches, rs_planes=rs_launch,
+                   rounds=rounds, groups=groups,
+                   stripe_bytes_per_acked=stripe_bytes / acked_bytes,
+                   stages=stages, boot_ms=boot_ms, host_plane=hp)
+        share = 100 * drain["follower_answers"] / drain["answers"]
+        print(f"planes path: traffic: {lat['appends_per_s']:.1f} "
+              f"single-message appends/s ({BROKER_LAT[0]} x {BROKER_LAT[1]} "
+              f"awaited, through the host workers), ack p50 "
+              f"{lat['p50_ms']:.3f} p99 {lat['p99_ms']:.3f} p999 "
+              f"{lat['p999_ms']:.3f} ms; bulk {bulk['messages']} msgs "
+              f"({BROKER_PRODUCERS} producers x {PLANES_BATCHES} batches of "
+              f"{cfg.max_batch}, window {BROKER_WINDOW}) "
+              f"{bulk['appends_per_s']:.1f} appends/s; follower consume "
+              f"{drain['messages']} msgs {drain['msgs_per_s']:.1f} msgs/s "
+              f"({BROKER_CONSUMERS} consumers, {PLANES_DRAIN_MAX} an answer), "
+              f"{drain['follower_answers']} of {drain['answers']} answers "
+              f"from followers ({share:.1f}%), every acked message once, "
+              f"byte-exact, at its acked offset; committed offsets equal "
+              f"[{card}]", flush=True)
+        print(f"planes path: stripes: {groups} group commits encoded "
+              f"({len(encoded)} encodes, mean width "
+              f"{sum(encoded) / max(1, len(encoded)):.1f} B, widest "
+              f"{max(encoded, default=0)} B), RS launches {rs_launch}; "
+              f"stripes.bytes per acked byte "
+              f"{stripe_bytes / acked_bytes:.4f} ({stripe_bytes} B for "
+              f"{acked_bytes} acked payload B); standbys' decoded groups "
+              f"{decoded}, answers past the floor {past}; controller host "
+              f"plane {hp}; append launches {launches} (packed >= {rounds} "
+              f"rounds); stage means us {stages} [{card}]", flush=True)
+        # (d) the controller lost: a standby promotes, rebuilds its store
+        # from stripes (stripe.fetch), boots its plane on the card.
+        t_loss = time.perf_counter()
+        t_loss_wall = time.time()
+        controller.stop()
+        out["probe"] = clients.run("PROBE")
+        promote_s = time.perf_counter() - t_loss
+        after = clients.run(f"BULK {PLANES_AFTER_BATCHES}")
+        reread = clients.run("DRAIN b follower")
+        clients.run("COMMITTED b")
+        logs = {b: os.path.join(root, f"broker-{b}.log") for b in peers}
+        booted = [b for b in peers if "booting data plane as controller"
+                  in open(logs[b]).read()]
+        if len(booted) != 1:
+            raise AssertionError(f"planes path: standbys {booted} booted a "
+                                 f"plane; exactly one should have")
+        promoted = booted[0]
+        rebuilds = stats_of(promoted)["stripe_rebuilds"]
+        if rebuilds < 1:
+            raise AssertionError(f"planes path: broker {promoted} promoted "
+                                 f"without a stripe rebuild")
+        t_boot_dp = log_ts(logs[promoted], "booting data plane as controller")
+        rebuild_s = log_ts(logs[promoted], "full records from stripe store") \
+            - t_boot_dp
+        out["promotion"] = dict(promote_s=promote_s, rebuild_s=rebuild_s,
+                                boot_after_s=t_boot_dp - t_loss_wall,
+                                after=after, reread=reread,
+                                promoted=promoted)
+        print(f"planes path: failover: controller 0 stopped; standby "
+              f"{promoted} promoted {t_boot_dp - t_loss_wall:.3f} s after "
+              f"the loss, rebuilt its store from stripes in {rebuild_s:.3f} s "
+              f"({100 * rebuild_s / promote_s:.1f}% of promotion -> "
+              f"serving), booted its plane (--device {DEV}); every "
+              f"partition led by a live broker with a produce acked "
+              f"{promote_s:.3f} s after the loss; {after['messages']} more "
+              f"msgs {after['appends_per_s']:.1f} appends/s; all "
+              f"{reread['messages']} acked messages read back exactly "
+              f"({reread['msgs_per_s']:.1f} msgs/s, "
+              f"{reread['follower_answers']} of {reread['answers']} answers "
+              f"from followers); committed offsets equal [{card}]",
+              flush=True)
+        clients.close()
+        standbys.stop()
+    finally:
+        stripe_codec.gf_matmul = codec_gf
+        if clients is not None:
+            clients.close()
+        if controller is not None and not controller.stopped:
+            controller.stop()
+        standbys.stop()
+        admin.close()
+    # Every encode width past the ladder the kernel check covered.
+    beyond = sorted(set(encoded) - set(stripe_ladder()))
+    if beyond:
+        rs_widths_vs_plain(beyond, seed, "the planes path's widths beyond "
+                                         "the ladder")
+    # (e) one fixed-seed chaos drill on the card.
+    t0 = time.perf_counter()
+    verdict = run_chaos(device=DEV, **PLANES_CHAOS)
+    chaos_s = time.perf_counter() - t0
+    fpast = verdict.get("follower", {}).get("answers_past_floor", 0)
+    if verdict["violations"] or fpast:
+        raise AssertionError(f"planes path: chaos seed 0 violations "
+                             f"{verdict['violations'][:5]}, follower "
+                             f"answers past the floor {fpast}")
+    out["chaos"] = dict(seconds=chaos_s, counts=verdict["counts"],
+                        converged=verdict["converged"],
+                        follower=verdict.get("follower", {}))
+    print(f"planes path: chaos: seed 0, proc backend, striped, follower "
+          f"reads, 2 host workers a broker, --device {DEV}: "
+          f"{len(verdict['trace'])} trace ops, no violations, converged "
+          f"{verdict['converged']}, counts {verdict['counts']}, follower "
+          f"answers past the floor 0, in {chaos_s:.1f} s [{card}]",
+          flush=True)
+    print(f"planes path: done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -2829,6 +3328,10 @@ def main() -> int:
                            "path (a measurement loop: no result line)")
     only.add_argument("--broker-only", action="store_true",
                       help="build the kernels and run only the broker "
+                           "path (a measurement loop: no result line)")
+    only.add_argument("--planes-only", action="store_true",
+                      help="build the kernels, check the RS kernel at the "
+                           "stripe ladder's widths and run only the planes "
                            "path (a measurement loop: no result line)")
     only.add_argument("--broker-client", metavar="SPEC",
                       help=argparse.SUPPRESS)  # the broker path's clients
@@ -2860,6 +3363,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
             broker_path(args.seed, card, workdir, commit_ab=True)
         return 0
+    if args.planes_only:
+        rs_widths_vs_plain(stripe_ladder(), args.seed,
+                           "the stripe ladder (every shard class)")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            planes_path(args.seed, card, workdir)
+        return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
     errs["gf_matmul"] = rs_kernel_vs_plain(args.seed)
@@ -2880,16 +3389,19 @@ def main() -> int:
         dp_runs = dataplane_path(args.seed, card, workdir)
         ctrl = control_path(args.seed, card, workdir)
         broker = broker_path(args.seed, card, workdir)
+        planes = planes_path(args.seed, card, workdir)
     launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
                    for p, r in dp_runs.items()}
     launches_ctrl = ctrl["launches_control"]
     launches_broker = broker["launches_broker"]
+    launches_planes = planes["launches_planes"]
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=launches[name],
                     launches_dataplane=launches_dp[name],
                     launches_control=launches_ctrl[name],
                     launches_broker=launches_broker[name],
+                    launches_planes=launches_planes[name],
                     max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],
@@ -2907,6 +3419,7 @@ def main() -> int:
                      for c in p.values()),
         launches_by_path=by_path,
         launches_broker=broker["rs_broker"]["gf_matmul"],
+        launches_planes=planes["rs_planes"]["gf_matmul"],
         max_abs_err=errs["gf_matmul"], ms=enc["ms"],
         wrapper_ms=enc["wrapper_ms"], plain_ms=enc["plain_ms"],
         bound_ms=enc["bound_ms"], bound_by="bytes", library_ms=None,

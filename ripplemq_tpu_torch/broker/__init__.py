@@ -1,9 +1,10 @@
 """Broker-side planes of the port: `broker.dataplane` (the `DataPlane` in
 local mode, `recover_image`, `replay_records`), `broker.replication`
 (`RoundReplicator`, `FencedError`), `broker.hostraft` (the metadata
-Raft), `broker.manager` (the `PartitionManager`) and `broker.server`
-(the `BrokerServer`; `python -m ripplemq_tpu_torch.broker` runs one).
-The follower read plane comes with slice E (ROADMAP.md).
+Raft), `broker.manager` (the `PartitionManager`), `broker.server`
+(the `BrokerServer`; `python -m ripplemq_tpu_torch.broker` runs one) and
+`broker.follower` (the `FollowerReadPlane`, which serves consumes on a
+standby below the replicated settled floor).
 
 Twin of `ripplemq_tpu/broker/__init__.py` (PyTorch port)."""
 
@@ -18,6 +19,7 @@ from ripplemq_tpu_torch.broker.manager import (
     ConsumerTableFullError,
     PartitionManager,
 )
+from ripplemq_tpu_torch.broker.follower import FollowerReadPlane
 from ripplemq_tpu_torch.broker.server import BrokerServer
 
 __all__ = [
@@ -30,4 +32,5 @@ __all__ = [
     "ConsumerTableFullError",
     "PartitionManager",
     "BrokerServer",
+    "FollowerReadPlane",
 ]

@@ -41,11 +41,13 @@ importing only the port's modules, with one addition, the device rule.
 as `ops.rs.indexed_device` gives it); on a host without CUDA it raises
 and names `device="cpu"`. The device reaches the DataPlane this broker
 boots as controller (genesis or takeover), the erasure-coded
-`SegmentStore` under `data_dir` (its background RS encoder) and the
-striped-promotion rebuild. Flags whose modules belong to later slices of
-the port raise `NotImplementedError` naming the slice: `host_workers >
-1`, `follower_reads` and `replication="striped"` (slice E),
-`engine_mode="spmd"` and `engine_workers` (slice F).
+`SegmentStore` under `data_dir` (its background RS encoder), the
+striped sender's encode of every group commit (`StripeReplicator`'s
+`encode_kw`), the follower read plane's reconstruct on a read miss
+(`FollowerReadPlane`'s `decode_kw`) and the striped-promotion rebuild.
+Flags whose modules belong to a later slice of the port raise
+`NotImplementedError` naming it: `engine_mode="spmd"` and
+`engine_workers` (slice F).
 """
 
 from __future__ import annotations
@@ -106,19 +108,8 @@ log = get_logger("broker")
 def _refuse_later_slices(config: ClusterConfig, engine_mode: str,
                          engine_workers) -> None:
     """Raise NotImplementedError for a flag whose module belongs to a later
-    slice of the port (ROADMAP.md): the multi-core host plane, follower
-    reads and striped replication are slice E; the spmd engine binding and
-    its multi-host workers are slice F."""
-    if config.host_workers > 1:
-        raise NotImplementedError(
-            "host_workers > 1 (the multi-core host plane, "
-            "parallel/hostplane.py) is slice E of the port")
-    if config.follower_reads:
-        raise NotImplementedError(
-            "follower_reads (broker/follower.py) is slice E of the port")
-    if config.replication == "striped":
-        raise NotImplementedError(
-            "replication='striped' (stripes/plane.py) is slice E of the port")
+    slice of the port (ROADMAP.md): the spmd engine binding and its
+    multi-host workers are slice F."""
     if engine_mode == "spmd":
         raise NotImplementedError(
             "engine_mode='spmd' (the multi-device binding) is slice F of "
@@ -677,6 +668,7 @@ class BrokerServer:
                 config.follower_page_cache_bytes,
                 fetch_fn=(self._fetch_sibling_stripes
                           if config.replication == "striped" else None),
+                decode_kw={"device": self.device},
             )
         persist_fn = None
         if data_dir is not None:
@@ -1015,6 +1007,7 @@ class BrokerServer:
                 self.client, self._addr_of,
                 stripe_map_fn=self.manager.current_stripe_map,
                 live_fn=self.manager.live_brokers,
+                encode_kw={"device": self.device},
                 **kw,
             )
         else:

@@ -16,9 +16,14 @@
 - so do the broker entry points: `BrokerServer`, `InProcCluster`,
   `ProcCluster` and `python -m ripplemq_tpu_torch.broker` (which exits
   nonzero and names `--device cpu`);
+- so does `run_chaos` (and `run_kill_all_drill`), which names
+  `device="cpu"`;
 - a flag whose module belongs to a later slice of the port raises
-  `NotImplementedError` naming that slice, as do the chaos harness's
-  names.
+  `NotImplementedError` naming that slice; the flags of slice E
+  (`host_workers > 1`, `follower_reads`, `replication="striped"`) build
+  the port's own planes on the broker's device, and the chaos package's
+  names are the port's objects;
+- a spawned host worker imports neither torch nor JAX (nor numpy).
 """
 
 from __future__ import annotations
@@ -64,10 +69,12 @@ def test_admission_list_matches_files_on_disk():
 
 
 @pytest.mark.parametrize("sub", ["broker", "chaos", "client", "groups",
-                                 "obs", "samples", "slo", "storage"])
+                                 "obs", "parallel", "samples", "slo",
+                                 "storage", "stripes"])
 def test_import_scan_covers_subpackage(sub):
     """The scan below walks every file of the package, the subpackages
-    slice D2 added (client/, slo/, chaos/, samples/) included."""
+    slice D2 added (client/, slo/, chaos/, samples/) and those slice E
+    grew (parallel/, stripes/) included."""
     scanned = {p.relative_to(REPO / "ripplemq_tpu_torch").parts[0]
                for p in _port_sources() if "ripplemq_tpu_torch" in p.parts}
     assert sub in scanned
@@ -327,31 +334,98 @@ def test_cli_multi_device_flags_name_slice_f(tmp_path, args):
     assert "slice F" in out.stderr, out.stderr
 
 
-@pytest.mark.parametrize("kw,slice_", [
-    ({"config": {"host_workers": 2}}, "slice E"),
-    ({"config": {"follower_reads": True}}, "slice E"),
-    ({"config": {"replication": "striped"}}, "slice E"),
-    ({"engine_mode": "spmd"}, "slice F"),
-    ({"engine_workers": ["127.0.0.1:1"]}, "slice F"),
-], ids=["host_workers", "follower_reads", "striped", "spmd",
-        "engine_workers"])
-def test_server_later_slice_flags_raise(kw, slice_):
+@pytest.mark.parametrize("kw", [
+    {"engine_mode": "spmd"},
+    {"engine_workers": ["127.0.0.1:1"]},
+], ids=["spmd", "engine_workers"])
+def test_server_later_slice_flags_raise(kw):
     from ripplemq_tpu_torch.broker.server import BrokerServer
     from ripplemq_tpu_torch.wire import InProcNetwork
 
-    config = _port_cluster_config(**kw.get("config", {}))
-    extra = {k: v for k, v in kw.items() if k != "config"}
-    with pytest.raises(NotImplementedError, match=slice_):
-        BrokerServer(0, config, net=InProcNetwork(), device="cpu", **extra)
+    with pytest.raises(NotImplementedError, match="slice F"):
+        BrokerServer(0, _port_cluster_config(), net=InProcNetwork(),
+                     device="cpu", **kw)
+
+
+def _plane_of(b, flag):
+    if flag == "host_workers":
+        return b.hostplane
+    if flag == "follower_reads":
+        return b.follower_plane
+    return b._make_replicator()
+
+
+@pytest.mark.parametrize("flag,value,cls", [
+    ("host_workers", 2, "ripplemq_tpu_torch.parallel.hostplane.HostPlane"),
+    ("follower_reads", True,
+     "ripplemq_tpu_torch.broker.follower.FollowerReadPlane"),
+    ("replication", "striped",
+     "ripplemq_tpu_torch.stripes.plane.StripeReplicator"),
+])
+def test_server_slice_e_flags_boot_port_planes(flag, value, cls):
+    """Each flag of slice E builds a CPU broker whose plane is the port's
+    own class; the striped sender and the follower plane compute on the
+    broker's device (nothing is started: no workers, no threads)."""
+    from ripplemq_tpu_torch.broker.server import BrokerServer
+    from ripplemq_tpu_torch.wire import InProcNetwork
+
+    config = _port_cluster_config(**{flag: value})
+    b = BrokerServer(0, config, net=InProcNetwork(), device="cpu")
+    plane = _plane_of(b, flag)
+    assert f"{type(plane).__module__}.{type(plane).__qualname__}" == cls
+    if flag == "follower_reads":
+        assert plane._decode_kw == {"device": torch.device("cpu")}
+    if flag == "replication":
+        assert plane.encode_kw == {"device": torch.device("cpu")}
+        plane.stop()
 
 
 @pytest.mark.parametrize("name", [
     "run_chaos", "run_kill_all_drill", "History", "check_history",
     "check_group_history", "Nemesis", "make_schedule"])
-def test_chaos_harness_names_slice_e(name):
+def test_chaos_names_are_port_objects(name):
     import ripplemq_tpu_torch.chaos as chaos
 
-    with pytest.raises(NotImplementedError, match="slice E"):
-        getattr(chaos, name)
-    assert "ripplemq_tpu_torch.chaos.harness" not in __import__(
-        "sys").modules
+    obj = getattr(chaos, name)
+    assert obj.__module__.startswith("ripplemq_tpu_torch.chaos."), (
+        obj.__module__)
+    assert name in chaos.__all__
+
+
+def test_run_chaos_without_device_raises_when_no_gpu(no_gpu):
+    from ripplemq_tpu_torch.chaos import run_chaos, run_kill_all_drill
+
+    for call in (run_chaos, run_kill_all_drill):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(seed=0)
+
+
+def test_spawned_host_worker_imports_neither_torch_nor_jax(monkeypatch,
+                                                             capfd):
+    """A host worker boots from a torch-free import chain. Read from
+    outside the worker: CPython's import-time report (the environment
+    the spawned process inherits) lists every module it imported, on the
+    stderr it shares with this process."""
+    import re
+    import time
+
+    from ripplemq_tpu_torch.parallel.hostplane import HostPlane
+
+    monkeypatch.setenv("PYTHONPROFILEIMPORTTIME", "1")
+    hp = HostPlane(1, slot_bytes=32, payload_bytes=24, max_batch=8)
+    hp.start()
+    try:
+        deadline = time.monotonic() + 60
+        while True:  # a worker still spawning answers late, never wrongly
+            try:
+                hp.submit(0, [b"m"], timeout_s=5.0)
+                break
+            except Exception:
+                assert time.monotonic() < deadline
+    finally:
+        hp.stop()
+    imported = re.findall(r"^import time:.*\|\s*([\w.]+)\s*$",
+                          capfd.readouterr().err, re.M)
+    assert "ripplemq_tpu_torch.parallel.hostplane" in imported
+    assert not [m for m in imported if m.split(".")[0] in (
+        "torch", "jax", "jaxlib", "ripplemq_tpu", "numpy")]

@@ -6,7 +6,8 @@ engine shape: `port_cfg(**kw)` is the port's `EngineConfig` built from
 the fields of `tests.helpers.small_cfg(**kw)`. `make_config` is the
 port's `chaos.cluster.make_cluster_config` and `InProcCluster` the
 port's in-proc cluster on the CPU: the names the reference tests import
-from `tests/broker_harness.py`.
+from `tests/broker_harness.py`. `run_chaos` is the port's harness on the
+CPU.
 """
 
 from __future__ import annotations
@@ -51,3 +52,10 @@ def read_all(dp, slot, replica=0, start=0):
             return msgs
         msgs.extend(got)
         offset = nxt
+
+
+def run_chaos(*args, device="cpu", **kw):
+    """The port's `run_chaos` on the CPU."""
+    from ripplemq_tpu_torch.chaos.harness import run_chaos as _run
+
+    return _run(*args, device=device, **kw)

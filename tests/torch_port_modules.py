@@ -22,21 +22,27 @@ PORT_TEST_MODULES = (
     "test_torch_append",
     "test_torch_broker",
     "test_torch_chain_settle",
+    "test_torch_chaos",
     "test_torch_client",
     "test_torch_controller_failover",
     "test_torch_dataplane",
     "test_torch_dataplane_parity",
     "test_torch_engine",
     "test_torch_failover",
+    "test_torch_follower_reads",
     "test_torch_group_cluster",
     "test_torch_group_waves",
     "test_torch_groups",
+    "test_torch_hostplane",
+    "test_torch_hostplane_chaos",
     "test_torch_hostraft",
     "test_torch_idempotence",
     "test_torch_manager",
     "test_torch_metadata",
     "test_torch_obs",
+    "test_torch_planes_parity",
     "test_torch_port_hygiene",
+    "test_torch_proc_chaos",
     "test_torch_process_cluster",
     "test_torch_read_cache",
     "test_torch_repl_pipeline",
@@ -46,10 +52,16 @@ PORT_TEST_MODULES = (
     "test_torch_rs",
     "test_torch_server_parity",
     "test_torch_settled_gap",
+    "test_torch_shmring",
     "test_torch_slo",
+    "test_torch_slo_chaos",
+    "test_torch_spans",
+    "test_torch_split",
+    "test_torch_split_chaos",
     "test_torch_step",
     "test_torch_storage",
     "test_torch_stripes",
+    "test_torch_stripes_cluster",
     "test_torch_term_skew",
     "test_torch_wire",
 )
