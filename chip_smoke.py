@@ -2,15 +2,19 @@
 """Chip smoke run of the PyTorch port (`ripplemq_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--dataplane-only | --control-only
-                                      | --broker-only | --planes-only]
+                                      | --broker-only | --planes-only
+                                      | --spmd-only | --gloo-probe]
 
 `--dataplane-only` builds the kernels and runs only phase 8,
-`--control-only` only phase 9, `--broker-only` only phase 10 and
+`--control-only` only phase 9, `--broker-only` only phase 10,
 `--planes-only` only phase 11 (after the RS kernel's check at the stripe
-ladder's widths), without the result line: loops for measuring the
-DataPlane, the control path, the broker path (`--broker-only` also times
-the consumers' drain with the reference's auto-commit against the
-port's) and the planes path. Runs only where
+ladder's widths) and `--spmd-only` only phase 12, without the result
+line: loops for measuring the DataPlane, the control path, the broker
+path (`--broker-only` also times the consumers' drain with the
+reference's auto-commit against the port's), the planes path and the
+lockstep path. `--gloo-probe` checks only the spmd binding's gloo
+collectives on CUDA tensors across 2 and 6 ranks of the card, their
+latency, and that a killed peer makes a collective raise. Runs only where
 `torch.cuda.is_available()`; exits nonzero at once
 elsewhere, and when run outside a checkout of the repository (the port's
 package must be importable next to it). Every phase prints one line; a
@@ -167,18 +171,43 @@ phase that fails raises, and the script exits nonzero with no result.
    past the ladder is checked against the plain version. Then one
    seed-0 chaos run (`run_chaos`, proc backend, striped, follower reads,
    2 host workers, on the card) with no violation;
-12. times: each kernel's device time alone (the profiler's events by
+12. the lockstep path (slice F, the multi-device binding): the append
+   kernels against their plain versions at the shapes the spmd binding
+   gives them (a cell's one-replica 512-partition shard of the broker
+   path's ring, the batcher's active sets localized, packed and legacy;
+   the 1x1 arm's dense write); then, each in its own process so that no
+   process group outlives it here: (a) the 1x1 arm, bench.py's
+   `spmd_parity` shape (1024 partitions, R 1, slots 12352, B 256, chain
+   8), the local binding and the spmd binding (fused control, and
+   legacy) on a world of one (NCCL) replaying the same seeded chained
+   rounds, states byte-identical at the end, rounds/s and committed
+   appends/s each and the spmd-vs-local delta; (b) the lockstep broker:
+   the broker path's topology and engine, the controller (rank 0 of a
+   6-rank gloo world, all on this card) with `engine_mode="spmd"` on a
+   (replica 3, part 2) mesh whose other 5 cells are
+   `python -m ripplemq_tpu_torch.parallel.worker` processes, the two
+   standbys local; 16 x 64 awaited single-message produces, a bulk of
+   8 x 96 batches of 512, every acked message read back exactly, the
+   collectives a round and their mean us, the packed append's launches
+   on every rank >= the controller's rounds; (c) the drill: one engine
+   worker SIGKILLed during a second bulk (retried under the producers'
+   idempotent identity), the plane must raise and break, the controller
+   abdicate and release it, a standby promote on its local engine and
+   serve, and every acked message read back exactly once;
+13. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
    the stripe encode at the ladder's 16 KiB and top classes;
-13. a JSON line naming each ported kernel (gf_matmul's launches split by
+14. a JSON line naming each ported kernel (gf_matmul's launches split by
    consumer and by path; the append variants' launches on the dataplane
    path as `launches_dataplane`, on the control path as
-   `launches_control`, and each kernel's on the broker path as
-   `launches_broker` and on the planes path as `launches_planes`), then
+   `launches_control`, each kernel's on the broker path as
+   `launches_broker` and on the planes path as `launches_planes`, and on
+   the lockstep path as `launches_spmd`: the legacy append's in the 1x1
+   arm, the packed append's a rank of the lockstep broker), then
    the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
@@ -2408,8 +2437,8 @@ def broker_client_main(spec_path: str) -> int:
     """The broker and planes paths' client process (`chip_smoke.py
     --broker-client SPEC`): the port's ProducerClient and ConsumerClient,
     driven phase by phase over a line protocol on stdin/stdout (LAT, BULK
-    n, DRAIN tag [ref | follower], COMMITTED tag, BEHIND tag, PROBE, EXIT
-    -> `RESULT <json>`), as bench.py's `_e2e_client_main` runs them. It
+    n, BULKR n, DRAIN tag [ref | follower], COMMITTED tag, BEHIND tag,
+    PROBE [live], EXIT -> `RESULT <json>`), as bench.py's `_e2e_client_main` runs them. It
     keeps every acked message at its acked offset and checks each read
     against them."""
     from ripplemq_tpu_torch.client.consumer import ConsumerClient
@@ -2457,7 +2486,7 @@ def broker_client_main(spec_path: str) -> int:
     bulk_round = [0]
 
     def lat() -> dict:
-        threads, per = BROKER_LAT
+        threads, per = spec.get("lat", BROKER_LAT)
         lats = []
 
         def worker(tid):
@@ -2529,6 +2558,41 @@ def broker_client_main(spec_path: str) -> int:
         secs = run_threads("bulk producers", BROKER_PRODUCERS, worker)
         n = BROKER_PRODUCERS * batches * B
         return dict(messages=n, appends_per_s=n / secs, seconds=secs)
+
+    def bulk_retried(batches: int) -> dict:
+        """BULK without the window: each producer sends one batch at a
+        time and retries it under one (pid, seq) until it is acked (the
+        producer's idempotent retries), so a failover in the middle
+        loses nothing and duplicates nothing. Returns each ack's wall
+        time, for the lockstep drill's kill -> serving figure."""
+        from ripplemq_tpu_torch.wire.retry import RetryPolicy
+
+        k0 = bulk_round[0]
+        bulk_round[0] += batches
+        acks = []
+
+        def worker(tid):
+            pc = ProducerClient(boot, rpc_timeout_s=30.0, retry_policy=(
+                RetryPolicy(max_attempts=10 ** 6, base_backoff_s=0.2,
+                            max_backoff_s=1.0, deadline_s=BROKER_WAIT_S)))
+            try:
+                rng = np.random.default_rng(seed * 7919 + tid)
+                filler = rng.integers(0, 256, PAYLOAD_BYTES,
+                                      dtype=np.uint8).tobytes()
+                for k in range(k0, k0 + batches):
+                    p = (tid + BROKER_PRODUCERS * k) % P
+                    msgs = [payload(100 + tid, k * B + i, filler)
+                            for i in range(B)]
+                    acked.add(p, pc.produce_batch(BROKER_TOPIC, msgs,
+                                                  partition=p), msgs)
+                    acks.append(time.time())
+            finally:
+                pc.close()
+
+        secs = run_threads("retried bulk producers", BROKER_PRODUCERS, worker)
+        n = BROKER_PRODUCERS * batches * B
+        return dict(messages=n, appends_per_s=n / secs, seconds=secs,
+                    ack_times=sorted(acks))
 
     def drain(tag: str, logic: str = "port") -> dict:
         """Every partition read from 0 by a consumer with auto-commit:
@@ -2634,9 +2698,13 @@ def broker_client_main(spec_path: str) -> int:
         return dict(partitions=len(committed[tag]), behind=sum(
             1 for _, got, want in wrong if got < want), differ=len(wrong))
 
-    def probe() -> dict:
+    def probe(live: bool = False) -> dict:
         """After the controller's loss: wait until every partition is led
-        by a live broker and a produce is acked again."""
+        by a live broker and a produce is acked again (`live`: the first
+        broker is alive, so only the produce is waited for)."""
+        deadline = time.monotonic() + BROKER_WAIT_S
+        if live:
+            return produce_one(deadline)
         t = TcpClient()
         meta = MetadataManager(t, boot, refresh_interval_s=3600,
                                rpc_timeout_s=5.0)
@@ -2661,14 +2729,20 @@ def broker_client_main(spec_path: str) -> int:
         finally:
             meta.close()
             t.close()
+        return produce_one(deadline)
+
+    probes = [0]
+
+    def produce_one(deadline) -> dict:
         pc = ProducerClient(boot, rpc_timeout_s=60.0)
-        m = payload(99, 0, b"x" * PAYLOAD_BYTES)
+        m = payload(99, probes[0], b"x" * PAYLOAD_BYTES)
+        probes[0] += 1
         try:
             while True:
                 try:
                     acked.add(0, pc.produce(BROKER_TOPIC, m, partition=0),
                               [m])
-                    return dict(ok=True)
+                    return dict(ok=True, acked_at=time.time())
                 except Exception:
                     if time.monotonic() > deadline:
                         raise
@@ -2688,7 +2762,8 @@ def broker_client_main(spec_path: str) -> int:
                    "DRAIN": lambda: drain(*cmd[1:3]),
                    "COMMITTED": lambda: check_committed(cmd[1]),
                    "BEHIND": lambda: behind(cmd[1]),
-                   "PROBE": lambda: probe()}[cmd[0]]()
+                   "BULKR": lambda: bulk_retried(int(cmd[1])),
+                   "PROBE": lambda: probe(cmd[1:] == ["live"])}[cmd[0]]()
         except Exception as e:
             print("ERROR " + repr(e)[:2000], flush=True)
             return 1
@@ -3300,6 +3375,569 @@ def planes_path(seed, card, workdir) -> dict:
     return out
 
 
+# ------------------------------------------------ the lockstep path (slice F)
+
+# The 1x1 arm: bench.py's `spmd_parity` shape (bench.py:660-663), chain 8.
+SPMD_PARITY = dict(partitions=1024, replicas=1, slots=12352, slot_bytes=128,
+                   max_batch=256, read_batch=32, max_consumers=64,
+                   max_offset_updates=8)
+SPMD_CHAIN = 8
+SPMD_LAUNCHES = 60            # chained launches a trial (bench.py's 240: cut)
+SPMD_TRIALS = 7               # trials a binding, alternated; best and median
+# The lockstep broker: the broker path's topology and engine, the
+# controller's engine a (replica 3, part 2) mesh: itself and 5 workers.
+SPMD_MESH = (3, 2)
+SPMD_LAT = (16, 64)           # awaited single-message producers x messages
+SPMD_BATCHES = 96             # bulk batches per producer (8 x 96 x 512)
+SPMD_DRILL_BATCHES = 16       # batches per producer of the drill's bulk
+SPMD_KILL_RANK = 5            # the engine worker the drill kills (cell (2, 1))
+SPMD_CHILD_S = 900            # bound of each child process
+
+
+def spmd_shard_checks(ops, seed) -> dict:
+    """The append kernels against their plain versions at the shard shapes
+    the spmd binding gives them: the lockstep broker's cell (one replica
+    of 512 partitions of the broker path's ring, slots 4608, B 512) with
+    the batcher's global active sets localized the binding's way (ids of
+    the other shard become -1), packed and legacy, and the 1x1 arm's
+    whole-ring dense write (1024 partitions, R 1, slots 12352, B 256)."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 9)
+    errs = {k: 0 for k in KERNELS}
+    cfg = EngineConfig(**BROKER_SHAPE)
+    local_P = cfg.partitions // SPMD_MESH[1]
+    shard = EngineConfig(**{**BROKER_SHAPE, "replicas": 1,
+                            "partitions": local_P})
+    log_k = torch.empty((1, local_P, shard.slots + shard.max_batch,
+                         shard.slot_bytes), dtype=torch.uint8,
+                        device=DEV).random_(generator=g)
+    log_p = log_k.clone()
+    lo = local_P  # the second shard: cells (r, 1)
+    for A in DP_BUCKETS:
+        for packed in (False, True):
+            entries, ids, _, _, ext = random_case(g, cfg, A, to_ring_end=True)
+            _, _, base, do_write, _ = random_case(g, shard, A,
+                                                  to_ring_end=True)
+            mine = (ids >= lo) & (ids < lo + local_P)
+            ids = torch.where(mine, ids - lo, torch.full_like(ids, -1))
+            name = "append_active_packed" if packed else "append_active"
+            _append_case(ops, log_k, log_p, entries, ids, base, do_write,
+                         ext[lo:lo + local_P] if packed else None,
+                         f"spmd cell shape (R=1 P={local_P} S={shard.slots} "
+                         f"B={shard.max_batch}, {int(mine.sum())} of A={A} "
+                         f"ids in the shard)", errs, name, False)
+    del log_k, log_p
+    pc = EngineConfig(**SPMD_PARITY)
+    log_k = torch.empty((1, pc.partitions, pc.slots + pc.max_batch,
+                         pc.slot_bytes), dtype=torch.uint8,
+                        device=DEV).random_(generator=g)
+    log_p = log_k.clone()
+    entries, _, base, do_write, _ = random_case(g, pc, pc.partitions,
+                                                to_ring_end=True)
+    ids = torch.arange(pc.partitions, dtype=torch.int32, device=DEV)
+    _append_case(ops, log_k, log_p, entries, ids, base, do_write, None,
+                 f"1x1 arm dense (R=1 P={pc.partitions} S={pc.slots} "
+                 f"B={pc.max_batch})", errs, "append_active", False)
+    del log_k, log_p
+    torch.cuda.empty_cache()
+    return errs
+
+
+def spmd_parity_child(out_path: str) -> int:
+    """The 1x1 arm, in its own process (`chip_smoke.py --spmd-child
+    parity OUT`): the local binding and the spmd binding on a world of
+    one (NCCL), fused control and legacy, replay the same seeded chained
+    dense rounds with the same trims; their states must end
+    byte-identical. Writes rounds/s and committed appends/s a binding."""
+    import dataclasses
+
+    from ripplemq_tpu_torch.core.encode import build_step_input
+    from ripplemq_tpu_torch.core.state import unfuse_state
+    from ripplemq_tpu_torch.parallel.engine import make_spmd_fns
+    from ripplemq_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = EngineConfig(**SPMD_PARITY)
+    cfg_fused = dataclasses.replace(cfg, fused_control=True)
+    P, B, S = cfg.partitions, cfg.max_batch, cfg.slots
+    rng = np.random.default_rng(17)
+    one = build_step_input(cfg, appends={
+        p: [rng.integers(0, 256, PAYLOAD_BYTES, dtype=np.uint8).tobytes()] * B
+        for p in range(P)}, leader=0, term=1)
+    chained = StepInput(*(None if x is None else torch.from_numpy(
+        np.broadcast_to(x, (SPMD_CHAIN,) + x.shape).copy()).to(DEV)
+        for x in one))
+    alive = torch.ones((P, 1), dtype=torch.bool, device=DEV)
+    quorum = torch.ones((P,), dtype=torch.int32, device=DEV)
+    adv = SPMD_CHAIN * B
+    n_launch = 2 + SPMD_TRIALS * SPMD_LAUNCHES  # warm-up, then the trials
+    trims = [torch.full((P,), max(0, (k + 1) * adv - S), dtype=torch.int32,
+                        device=DEV) for k in range(n_launch)]
+    mesh = make_mesh(1, 1, device=DEV)
+    bindings = {"local": make_local_fns(cfg, device=DEV),
+                "spmd": make_spmd_fns(cfg_fused, mesh),
+                "spmd_legacy": make_spmd_fns(cfg, mesh)}
+    states = {name: fns.init() for name, fns in bindings.items()}
+    done = {name: 0 for name in bindings}
+
+    def launch(name, n):
+        fns, st = bindings[name], states[name]
+        for _ in range(n):
+            st, out = fns.step_many(st, chained, alive, quorum,
+                                    trims[done[name]])
+            done[name] += 1
+        states[name] = st
+        return out
+
+    for name in bindings:
+        launch(name, 2)
+    torch.cuda.synchronize()
+    # Each binding's launches are counted over its own trials only.
+    launches = {name: collections.Counter() for name in bindings}
+    trials = {name: [] for name in bindings}
+    for _ in range(SPMD_TRIALS):
+        for name in bindings:
+            append_ops.reset_launches()
+            t0 = time.perf_counter()
+            out = launch(name, SPMD_LAUNCHES)
+            torch.cuda.synchronize()
+            trials[name].append(SPMD_LAUNCHES / (time.perf_counter() - t0))
+            launches[name].update(append_ops.LAUNCHES)
+            if not bool(out.committed.all()):
+                raise AssertionError(f"1x1 arm: {name} round did not commit")
+    best = {name: max(t) for name, t in trials.items()}
+    median = {name: float(np.median(t)) for name, t in trials.items()}
+    named = {name: (unfuse_state(st) if hasattr(st, "ctrl") else st)
+             for name, st in states.items()}
+    equal = {name: all(torch.equal(getattr(named["local"], f),
+                                   getattr(named[name], f))
+                       for f in named["local"]._fields)
+             for name in ("spmd", "spmd_legacy")}
+    rounds = {n: r * SPMD_CHAIN for n, r in best.items()}
+    res = dict(
+        rounds_per_s=rounds,
+        trial_rounds_per_s={n: [r * SPMD_CHAIN for r in t]
+                            for n, t in trials.items()},
+        appends_per_s={n: r * P * B for n, r in rounds.items()},
+        delta_pct=100 * (best["spmd"] - best["local"]) / best["local"],
+        legacy_delta_pct=100 * (best["spmd_legacy"] - best["local"])
+        / best["local"],
+        median_delta_pct=100 * (median["spmd"] - median["local"])
+        / median["local"],
+        equal=equal, launches={n: dict(c) for n, c in launches.items()},
+        backend=mesh.backend, collectives=dict(mesh.stats),
+        expected_launches=SPMD_TRIALS * SPMD_LAUNCHES * SPMD_CHAIN)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def spmd_worker_stats(client, workers, reset=False) -> list:
+    return [client.call(w, {"type": "engine.stats", "reset": reset},
+                        timeout=60.0) for w in workers]
+
+
+def spmd_broker_child(spec_path: str) -> int:
+    """The lockstep broker and its drill, in their own process
+    (`chip_smoke.py --spmd-child broker SPEC`): this process is rank 0
+    of a 6-rank world (gloo: every rank on this card) and the controller
+    broker; 5 engine-worker processes are the other cells of the (3, 2)
+    mesh; two standby broker processes stay local; the clients run in a
+    child process. Prints its lines and writes its figures to SPEC's
+    `out`; leaves without destroying the (broken) world."""
+    from ripplemq_tpu_torch.chaos.proc_cluster import ProcCluster, free_ports
+    from ripplemq_tpu_torch.metadata.cluster_config import parse_cluster_config
+    from ripplemq_tpu_torch.parallel.lockstep import LockstepController
+    from ripplemq_tpu_torch.parallel.mesh import init_distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    seed, card, root = spec["seed"], spec["card"], spec["root"]
+    os.makedirs(root, exist_ok=True)
+    t_phase = time.perf_counter()
+    R, S = SPMD_MESH
+    ports = free_ports(3 + R * S)
+    raw = broker_raw_config(ports[:3])
+    config = parse_cluster_config(raw)
+    cfg, P = config.engine, config.engine.partitions
+    coord = f"127.0.0.1:{ports[3]}"
+    waddrs = [f"127.0.0.1:{p}" for p in ports[4:]]
+    workers, logs = [], []
+    for rank in range(1, R * S):
+        log = open(os.path.join(root, f"worker-{rank}.log"), "wb")
+        logs.append(log)
+        workers.append(subprocess.Popen(
+            [sys.executable, "-m", "ripplemq_tpu_torch.parallel.worker",
+             "--coordinator", coord, "--num-hosts", str(R * S),
+             "--host-index", str(rank), "--listen-host", "127.0.0.1",
+             "--listen-port", str(ports[3 + rank]), "--device", DEV,
+             "--timeout-s", str(config.rpc_timeout_s)],
+            stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+    init_distributed(coord, R * S, 0, device=DEV,
+                     timeout_s=config.rpc_timeout_s)
+    standbys = ProcCluster(config=config, data_dir=root, device=DEV)
+    ctrl_dir = os.path.join(root, "broker-0")
+    controller = clients = None
+    wclient = TcpClient()
+    out = {}
+    try:
+        controller = BrokerServer(0, config, net=None, data_dir=ctrl_dir,
+                                  device=DEV, engine_mode="spmd",
+                                  engine_workers=waddrs)
+        controller.start()
+        for b in (1, 2):
+            standbys.restart(b)
+        m0 = controller.manager
+
+        def ready():
+            dp = controller.dataplane
+            tops = m0.get_topics()
+            return (dp is not None and tops
+                    and len(m0.current_standbys()) == config.standby_count
+                    and all(a.leader is not None
+                            for t in tops for a in t.assignments))
+
+        wait_for(ready, "lockstep path: every partition led and both "
+                 "standbys joined", BROKER_WAIT_S)
+        dp = controller.dataplane
+        if not isinstance(dp.fns, LockstepController):
+            raise AssertionError(f"lockstep path: engine {type(dp.fns)}")
+        mesh = dp.fns.mesh
+        if mesh.shape != {"replica": R, "part": S} or mesh.coords != (0, 0):
+            raise AssertionError(f"lockstep path: mesh {mesh.shape} at "
+                                 f"{mesh.coords}")
+        # The broker's own warm-up only (every warm call crosses 6 ranks).
+        wt = controller._warm_thread
+        if wt is not None:
+            wt.join(timeout=BROKER_WAIT_S)
+        boot_s = time.perf_counter() - t_phase
+        print(f"lockstep path: boot: controller BrokerServer 0 on "
+              f"{dp.device}, engine_mode spmd: cell (0, 0) of a "
+              f"{R} x {S} mesh ({mesh.backend}, {R * S} ranks on this card; "
+              f"P={P} R={cfg.replicas} slots={cfg.slots} B={cfg.max_batch} "
+              f"SB={cfg.slot_bytes}, fused_control + packed_writes, a "
+              f"{cfg.partitions // S}-partition one-replica shard a cell), "
+              f"{len(workers)} engine workers, standbys 1, 2 local, warmed, "
+              f"in {boot_s:.1f} s", flush=True)
+        clients = BrokerClients(dict(
+            bootstrap=[b.address for b in config.brokers], partitions=P,
+            max_batch=cfg.max_batch, read_batch=cfg.read_batch, seed=seed,
+            lat=list(SPMD_LAT)), root)
+        # The main path: counts zeroed just before, read just after, on
+        # every rank.
+        append_ops.reset_launches()
+        rs_ops.reset_launches()
+        mesh.reset_stats()
+        spmd_worker_stats(wclient, waddrs, reset=True)
+        r0 = dp.rounds
+        lat = clients.run("LAT")
+        bulk = clients.run(f"BULK {SPMD_BATCHES}")
+        drain = clients.run("DRAIN a")
+        clients.run("COMMITTED a")
+        rounds = dp.rounds - r0
+        launches = dict(append_ops.LAUNCHES)
+        coll = {k: list(v) for k, v in mesh.stats.items()}
+        wstats = spmd_worker_stats(wclient, waddrs)
+        hists = controller.dispatch(
+            {"type": "admin.metrics"})["metrics"]["histograms"]
+        stages = {s: hists[s]["mean"] for s in E2E_STAGES if s in hists}
+        per_rank = [launches["append_active_packed"]] + [
+            w["launches"]["append_active_packed"] for w in wstats]
+        if min(per_rank) < rounds or rounds <= 0 or any(
+                w["launches"]["append_active"] for w in wstats) \
+                or launches["append_active"]:
+            raise AssertionError(f"lockstep path: packed launches a rank "
+                                 f"{per_rank} for {rounds} rounds")
+        n_coll = sum(c[0] for c in coll.values())
+        out.update(latency=lat, bulk=bulk, drain=drain, stages=stages,
+                   rounds=rounds, launches=launches, per_rank=per_rank,
+                   collectives=coll, boot_s=boot_s)
+        print(f"lockstep path: traffic: {lat['appends_per_s']:.1f} "
+              f"single-message appends/s ({SPMD_LAT[0]} x {SPMD_LAT[1]} "
+              f"awaited), ack p50 {lat['p50_ms']:.3f} p99 "
+              f"{lat['p99_ms']:.3f} p999 {lat['p999_ms']:.3f} ms; bulk "
+              f"{bulk['messages']} msgs ({BROKER_PRODUCERS} producers x "
+              f"{SPMD_BATCHES} batches of {cfg.max_batch}, window "
+              f"{BROKER_WINDOW}) {bulk['appends_per_s']:.1f} appends/s; "
+              f"consume {drain['messages']} msgs {drain['msgs_per_s']:.1f} "
+              f"msgs/s, every acked message once, byte-exact, at its acked "
+              f"offset; committed offsets equal; engine.dispatch_us mean "
+              f"{stages.get('engine.dispatch_us', 0):.1f}, "
+              f"settle.standby_ack_us mean "
+              f"{stages.get('settle.standby_ack_us', 0):.1f} [{card}]",
+              flush=True)
+        print(f"lockstep path: collectives on the controller: "
+              f"{n_coll / max(rounds, 1):.2f} a round over {rounds} rounds; "
+              f"by kind (calls, mean us): "
+              f"{ {k: (c[0], round(c[1] / c[0], 1)) for k, c in coll.items()} }; "
+              f"packed append launches by rank {per_rank} >= {rounds} "
+              f"controller rounds [{card}]", flush=True)
+        # (c) the drill: SIGKILL an engine worker during a second bulk.
+        victim = workers[SPMD_KILL_RANK - 1]
+        marks = {}
+
+        def kill_later():
+            time.sleep(2.0)
+            marks["kill"] = time.time()
+            os.kill(victim.pid, 9)
+            deadline = time.monotonic() + BROKER_WAIT_S
+            while time.monotonic() < deadline:
+                if "broken" not in marks and dp.broken_reason is not None:
+                    marks["broken"] = time.time()
+                if "abdicated" not in marks and m0.current_controller() != 0:
+                    marks["abdicated"] = time.time()
+                if "released" not in marks and controller.dataplane is None:
+                    marks["released"] = time.time()
+                if len(marks) == 4:
+                    return
+                time.sleep(0.01)
+
+        killer = threading.Thread(target=kill_later, daemon=True)
+        killer.start()
+        drill = clients.run(f"BULKR {SPMD_DRILL_BATCHES}")
+        killer.join(timeout=BROKER_WAIT_S)
+        probe = clients.run("PROBE live")
+        if set(marks) != {"kill", "broken", "abdicated", "released"}:
+            raise AssertionError(f"lockstep path: drill stopped at {marks}")
+        reason = dp.broken_reason
+        new_ctrl = m0.current_controller()
+        serving = min([t for t in drill["ack_times"] + [probe["acked_at"]]
+                       if t > marks["abdicated"]])
+        reread = clients.run("DRAIN b")
+        clients.run("COMMITTED b")
+        booted = [b for b in (1, 2) if "booting data plane as controller"
+                  in open(os.path.join(root, f"broker-{b}.log")).read()]
+        if booted != [new_ctrl]:
+            raise AssertionError(f"lockstep path: controller {new_ctrl}, "
+                                 f"planes booted on {booted}")
+        drill_fig = dict(
+            broken_s=marks["broken"] - marks["kill"],
+            abdicated_s=marks["abdicated"] - marks["kill"],
+            released_s=marks["released"] - marks["kill"],
+            serving_s=serving - marks["kill"], reason=str(reason)[:300],
+            promoted=new_ctrl, bulk=drill, reread=reread)
+        drill_fig["bulk"] = {k: v for k, v in drill.items()
+                             if k != "ack_times"}
+        out["drill"] = drill_fig
+        print(f"lockstep path: drill: engine worker rank {SPMD_KILL_RANK} "
+              f"SIGKILLed {2.0:.1f} s into a retried bulk of "
+              f"{drill['messages']} msgs; the plane raised and broke "
+              f"{drill_fig['broken_s']:.3f} s after the kill "
+              f"({drill_fig['reason'][:160]}), controller 0 abdicated at "
+              f"{drill_fig['abdicated_s']:.3f} s and released its plane at "
+              f"{drill_fig['released_s']:.3f} s; standby {new_ctrl} "
+              f"promoted on its local engine and served an ack "
+              f"{drill_fig['serving_s']:.3f} s after the kill; all "
+              f"{reread['messages']} acked messages (before, during and "
+              f"after) read back once, byte-exact, at their acked offsets "
+              f"({reread['msgs_per_s']:.1f} msgs/s); committed offsets "
+              f"equal [{card}]", flush=True)
+        out["seconds"] = time.perf_counter() - t_phase
+    finally:
+        if clients is not None:
+            clients.close()
+        if controller is not None and not controller.stopped:
+            controller.stop()
+        standbys.stop()
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+            w.wait(timeout=30)
+        for log in logs:
+            log.close()
+        wclient.close()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+GLOO_PROBE_WORLDS = (2, 6)     # ranks on this one card: a pair, the mesh
+GLOO_PROBE_SIZES = (512, 8192)  # int32 values an all_reduce
+GLOO_PROBE_CALLS = 100         # timed all_reduces a size, after 5 warm-up
+
+
+def gloo_probe_child(arg: str) -> int:
+    """One rank of the gloo probe (`--spmd-child gloo RANK:WORLD:DIR`):
+    joins a world of WORLD ranks over a FileStore in DIR, all on this
+    card, checks each collective the spmd binding uses on CUDA tensors
+    (all_reduce SUM and MAX on int32, SUM on uint8, all_gather,
+    broadcast), times an all_reduce a size, and in a world of two kills
+    rank 1 and times how long rank 0's next collective takes to raise.
+    Rank 0 writes its figures to DIR/out.json."""
+    import torch.distributed as dist
+
+    from ripplemq_tpu_torch.parallel.mesh import init_distributed
+
+    rank, world, root = arg.split(":", 2)
+    rank, world = int(rank), int(world)
+    init_distributed(f"file://{os.path.join(root, 'store')}", world, rank,
+                     device="cuda", timeout_s=30.0)
+    dev = torch.device("cuda", 0)
+
+    def full(n, v, dtype=torch.int32):
+        return torch.full((n,), v, dtype=dtype, device=dev)
+
+    got = {}
+    x = full(5, rank + 1)
+    dist.all_reduce(x)
+    got["all_reduce_sum_int32"] = x.tolist() == [world * (world + 1) // 2] * 5
+    x = full(5, rank + 1)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    got["all_reduce_max_int32"] = x.tolist() == [world] * 5
+    x = full(7, rank + 1, torch.uint8)
+    dist.all_reduce(x)
+    got["all_reduce_sum_uint8"] = x.tolist() == [
+        world * (world + 1) // 2 % 256] * 7
+    parts = [full(4, -1) for _ in range(world)]
+    dist.all_gather(parts, full(4, rank))
+    got["all_gather_int32"] = all(t.tolist() == [i] * 4
+                                  for i, t in enumerate(parts))
+    x = full(3, rank)
+    dist.broadcast(x, src=0)
+    got["broadcast_int32"] = x.tolist() == [0] * 3
+    us = {}
+    for n in GLOO_PROBE_SIZES:
+        z = full(n, 1)
+        for _ in range(5):
+            dist.all_reduce(z)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(GLOO_PROBE_CALLS):
+            dist.all_reduce(z)
+        torch.cuda.synchronize()
+        us[n] = (time.perf_counter() - t0) / GLOO_PROBE_CALLS * 1e6
+    res = dict(backend=dist.get_backend(), ok=got, us=us, raise_s=None)
+    dist.barrier()
+    if world == 2 and rank == 1:
+        os.kill(os.getpid(), 9)
+    if world == 2:
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        try:
+            dist.all_reduce(full(1, 1))
+        except Exception:  # noqa: BLE001 - any raise is the answer
+            res["raise_s"] = time.perf_counter() - t0
+    if rank == 0:
+        with open(os.path.join(root, "out.json"), "w") as f:
+            json.dump(res, f)
+    return 0
+
+
+def gloo_probe(card) -> None:
+    """`--gloo-probe`: gloo collectives on CUDA tensors, for each world
+    in GLOO_PROBE_WORLDS (see `gloo_probe_child`); fails unless every
+    collective gives the right values and, in the pair, the killed peer
+    makes the survivor's collective raise within the group timeout."""
+    for world in GLOO_PROBE_WORLDS:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as root:
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--spmd-child",
+                 "gloo", f"{r}:{world}:{root}"],
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+                for r in range(world)]
+            try:
+                rcs = [p.wait(timeout=120) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait(timeout=30)
+            with open(os.path.join(root, "out.json")) as f:
+                res = json.load(f)
+        if rcs[0] != 0 or not all(res["ok"].values()) or (
+                world == 2 and res["raise_s"] is None):
+            raise AssertionError(f"gloo probe: {world} ranks: exits {rcs}, "
+                                 f"{res}")
+        us = ", ".join(f"{n} int32 {v:.1f}" for n, v in res["us"].items())
+        kill = ("" if res["raise_s"] is None else
+                f"; the survivor's collective raised {res['raise_s']:.3f} s "
+                f"after its peer's SIGKILL")
+        print(f"gloo probe: {world} ranks on one card ({res['backend']}): "
+              f"every collective right on CUDA tensors ({', '.join(res['ok'])}"
+              f"); all_reduce us (mean of {GLOO_PROBE_CALLS}): {us}{kill} "
+              f"[{card}]", flush=True)
+
+
+def spmd_child(kind: str, arg: str) -> None:
+    """Run one lockstep-path child and leave without tearing down its
+    process groups (a broken world's teardown waits for a dead peer)."""
+    rc = 1
+    try:
+        rc = {"parity": spmd_parity_child, "broker": spmd_broker_child,
+              "gloo": gloo_probe_child}[kind](arg)
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
+def run_spmd_child(kind: str, arg: str, what: str) -> None:
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--spmd-child", kind,
+         arg], cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        rc = proc.wait(timeout=SPMD_CHILD_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise AssertionError(f"lockstep path: {what} did not end within "
+                             f"{SPMD_CHILD_S} s")
+    if rc != 0:
+        raise AssertionError(f"lockstep path: {what} failed (exit {rc})")
+
+
+def spmd_path(seed, card, workdir) -> dict:
+    """Phase 12 (see the module docstring): the spmd binding's kernels at
+    its shard shapes, the 1x1 arm and the lockstep broker with its drill,
+    each child in its own process."""
+    t_phase = time.perf_counter()
+    errs = spmd_shard_checks(append_ops, seed)
+    root = os.path.join(workdir, "spmd-path")
+    os.makedirs(root, exist_ok=True)
+    par_out = os.path.join(root, "parity.json")
+    run_spmd_child("parity", par_out, "the 1x1 arm")
+    with open(par_out) as f:
+        par = json.load(f)
+    if not all(par["equal"].values()):
+        raise AssertionError(f"lockstep path: 1x1 arm states differ: "
+                             f"{par['equal']}")
+    if any(c.get("append_active") != par["expected_launches"]
+           for c in par["launches"].values()):
+        raise AssertionError(f"lockstep path: 1x1 arm launches "
+                             f"{par['launches']}, {par['expected_launches']} "
+                             f"a binding expected")
+    rps, aps = par["rounds_per_s"], par["appends_per_s"]
+    trials = "; ".join(f"{n} " + " ".join(f"{r:.1f}" for r in t)
+                       for n, t in par["trial_rounds_per_s"].items())
+    print(f"lockstep path: 1x1 arm (P={SPMD_PARITY['partitions']} R=1 "
+          f"slots={SPMD_PARITY['slots']} B={SPMD_PARITY['max_batch']}, chain "
+          f"{SPMD_CHAIN}, {SPMD_TRIALS} x {SPMD_LAUNCHES} launches a binding, "
+          f"trials alternated, best kept; a world of one on "
+          f"{par['backend']}): rounds/s local {rps['local']:.1f}, spmd (fused) {rps['spmd']:.1f}, spmd legacy "
+          f"{rps['spmd_legacy']:.1f}; committed appends/s local "
+          f"{aps['local']:.1f}, spmd {aps['spmd']:.1f}, spmd legacy "
+          f"{aps['spmd_legacy']:.1f}; spmd vs local {par['delta_pct']:+.2f}%"
+          f", legacy vs local {par['legacy_delta_pct']:+.2f}%, spmd vs "
+          f"local on the trials' medians {par['median_delta_pct']:+.2f}%; "
+          f"each trial's rounds/s in order: {trials}; the three "
+          f"states byte-identical; collectives {par['collectives']}; "
+          f"append launches {par['launches']} [{card}]", flush=True)
+    spec = os.path.join(root, "broker.json")
+    broker_out = os.path.join(root, "broker-out.json")
+    with open(spec, "w") as f:
+        json.dump(dict(seed=seed, card=card, root=os.path.join(root, "b"),
+                       out=broker_out), f)
+    run_spmd_child("broker", spec, "the lockstep broker")
+    with open(broker_out) as f:
+        broker = json.load(f)
+    print(f"lockstep path: done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return dict(errs=errs, parity=par, broker=broker)
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -3333,11 +3971,22 @@ def main() -> int:
                       help="build the kernels, check the RS kernel at the "
                            "stripe ladder's widths and run only the planes "
                            "path (a measurement loop: no result line)")
+    only.add_argument("--spmd-only", action="store_true",
+                      help="build the kernels and run only the lockstep "
+                           "path (a measurement loop: no result line)")
+    only.add_argument("--gloo-probe", action="store_true",
+                      help="run only the gloo probe: the spmd binding's "
+                           "collectives on CUDA tensors across 2 and 6 "
+                           "ranks of this card (no result line)")
     only.add_argument("--broker-client", metavar="SPEC",
                       help=argparse.SUPPRESS)  # the broker path's clients
+    only.add_argument("--spmd-child", nargs=2, metavar=("KIND", "ARG"),
+                      help=argparse.SUPPRESS)  # the lockstep path's children
     args = ap.parse_args()
     if args.broker_client:
         return broker_client_main(args.broker_client)
+    if args.spmd_child:
+        spmd_child(*args.spmd_child)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device here; this script runs on the GPU "
               "only", file=sys.stderr)
@@ -3346,6 +3995,9 @@ def main() -> int:
     card = card_line()
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
+    if args.gloo_probe:
+        gloo_probe(card)
+        return 0
 
     build_kernels()
     if args.dataplane_only:
@@ -3369,6 +4021,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
             planes_path(args.seed, card, workdir)
         return 0
+    if args.spmd_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            spmd_path(args.seed, card, workdir)
+        return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
     errs["gf_matmul"] = rs_kernel_vs_plain(args.seed)
@@ -3390,11 +4046,21 @@ def main() -> int:
         ctrl = control_path(args.seed, card, workdir)
         broker = broker_path(args.seed, card, workdir)
         planes = planes_path(args.seed, card, workdir)
+        spmd = spmd_path(args.seed, card, workdir)
     launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
                    for p, r in dp_runs.items()}
     launches_ctrl = ctrl["launches_control"]
     launches_broker = broker["launches_broker"]
     launches_planes = planes["launches_planes"]
+    # The lockstep path: the packed append a rank of the lockstep broker
+    # (the controller first), the legacy one in the 1x1 arm's two spmd
+    # bindings (its local binding is not the spmd path).
+    launches_spmd = {
+        "append_active": sum(spmd["parity"]["launches"][n]["append_active"]
+                             for n in ("spmd", "spmd_legacy")),
+        "append_active_packed": spmd["broker"]["per_rank"]}
+    for name, err in spmd["errs"].items():
+        errs[name] = max(errs[name], err)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=launches[name],
@@ -3402,6 +4068,7 @@ def main() -> int:
                     launches_control=launches_ctrl[name],
                     launches_broker=launches_broker[name],
                     launches_planes=launches_planes[name],
+                    launches_spmd=launches_spmd[name],
                     max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],

@@ -20,9 +20,13 @@ Twin of `ripplemq_tpu/broker/__main__.py` (PyTorch port): the same code,
 importing only the port's modules, plus `--device`: where the broker's
 device work runs (a torch device string). It defaults to CUDA and is
 resolved before the server is built, so on a host without a GPU the
-command exits nonzero and names `--device cpu`. The multi-host flags
-(`--coordinator`, `--num-hosts > 1`, `--engine-workers`) belong to
-slice F of the port and exit 2 naming it.
+command exits nonzero and names `--device cpu`. With `--coordinator`
+the broker joins the distributed world as rank `--host-index` of
+`--num-hosts` (one rank a mesh cell; `parallel.mesh.init_distributed`,
+its collectives waiting at most the config's `rpc_timeout_s`) before it
+builds anything; a controller with `--engine-mode spmd` then drives its
+cell of the mesh, and `--engine-workers` names the other cells' engine
+workers (`python -m ripplemq_tpu_torch.parallel.worker`).
 """
 
 from __future__ import annotations
@@ -50,8 +54,7 @@ def main(argv: list[str] | None = None) -> int:
                     choices=["local", "spmd"],
                     help="device binding for the controller's engine: "
                          "'local' holds every replica on one device, "
-                         "'spmd' shards a (replica x part) device mesh "
-                         "(slice F of the port)")
+                         "'spmd' shards a (replica x part) mesh of ranks")
     ap.add_argument("--device", default=None,
                     help="torch device for the broker's device work (the "
                          "controller's DataPlane, the erasure-coded store): "
@@ -65,27 +68,22 @@ def main(argv: list[str] | None = None) -> int:
                          "log4j2-style pattern — machine-greppable next "
                          "to the telemetry plane's event timeline")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-host SPMD: host 0's host:port for "
-                         "the distributed mesh (run the controller with "
-                         "--engine-mode spmd on every participating "
-                         "host; see parallel.multihost_check)")
+                    help="multi-process SPMD: rank 0's host:port for "
+                         "the distributed world (this broker is rank 0 "
+                         "when it drives the mesh as controller; see "
+                         "parallel.multihost_check)")
     ap.add_argument("--num-hosts", type=int, default=1,
-                    help="multi-host SPMD: number of participating hosts")
+                    help="multi-process SPMD: ranks in the world (one a "
+                         "mesh cell)")
     ap.add_argument("--host-index", type=int, default=0,
-                    help="multi-host SPMD: this process's index")
+                    help="multi-process SPMD: this process's rank")
     ap.add_argument("--engine-workers", default=None,
-                    help="multi-host SPMD: comma-separated host:port of "
-                         "the engine workers on the other hosts; required "
-                         "with --coordinator so every process launches "
-                         "each mesh computation (slice F of the port)")
+                    help="multi-process SPMD: comma-separated host:port "
+                         "of the engine workers of the other ranks (run "
+                         "python -m ripplemq_tpu_torch.parallel.worker "
+                         "there); required with --coordinator so every "
+                         "rank launches each mesh computation")
     args = ap.parse_args(argv)
-
-    if (args.coordinator is not None or args.num_hosts > 1
-            or args.engine_workers or args.engine_mode == "spmd"):
-        print("error: --coordinator, --num-hosts > 1, --engine-workers and "
-              "--engine-mode spmd (the multi-device binding) are slice F "
-              "of the port", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -122,11 +120,41 @@ def main(argv: list[str] | None = None) -> int:
         data_dir = os.path.join(args.data_dir, f"broker-{args.broker_id}")
         os.makedirs(data_dir, exist_ok=True)
 
+    workers = None
+    if args.engine_workers:
+        workers = [w.strip() for w in args.engine_workers.split(",") if w.strip()]
+    if args.coordinator is not None and args.num_hosts > 1:
+        if not workers:
+            print("error: --coordinator with --num-hosts > 1 requires "
+                  "--engine-workers (every rank of the world must launch "
+                  "each computation; run python -m "
+                  "ripplemq_tpu_torch.parallel.worker for the other "
+                  "ranks)", file=sys.stderr)
+            return 2
+        if args.engine_mode != "spmd":
+            print("error: --coordinator with --num-hosts > 1 requires "
+                  "--engine-mode spmd (mode 'local' would silently serve "
+                  "from this process's device alone while the workers "
+                  "wait forever)", file=sys.stderr)
+            return 2
+
+    if args.coordinator is not None:
+        # Join the world BEFORE the server exists: the controller's spmd
+        # engine is this rank's cell of a mesh over every rank.
+        from ripplemq_tpu_torch.parallel.mesh import init_distributed
+
+        n = init_distributed(args.coordinator, args.num_hosts,
+                             args.host_index, device=device,
+                             timeout_s=config.rpc_timeout_s)
+        print(f"joined a {n}-rank world as rank {args.host_index}",
+              flush=True)
+
     server = BrokerServer(
         args.broker_id, config,
         net=None,  # real TCP sockets
         engine_mode=args.engine_mode,
         data_dir=data_dir,
+        engine_workers=workers,
         device=device,
     )
 

@@ -39,12 +39,15 @@ top of this module:
   (the port's `core.state.row_lens` is a torch function).
 
 Elections ride the same device: `elect()` batches RequestVote rounds for
-many partitions into ONE vote call. The multi-device binding
-(`mode="spmd"`: the reference's replica × part mesh, multi-host
-lockstep and allgathered state fetches) is slice F of the port
-(ROADMAP.md); this class raises `NotImplementedError` for it, and keeps
-the `getattr` probes (`broken`, `fetch_state`, `lockstep_result`) that
-binding plugs into.
+many partitions into ONE vote call. `mode="spmd"` binds the engine to a
+(replica x part) mesh of ranks (`parallel.engine.make_spmd_fns`); with
+`workers` the other ranks are engine-worker processes and every engine
+call goes through a `parallel.lockstep.LockstepController`, which
+broadcasts its host arguments to them — so in that mode the arguments
+stay on the host (`_stage` to no device) and each rank moves them to its
+own device. State fetches are then the controller's `fetch_state` (an
+all_gather over the mesh), and a broken mesh surfaces through
+`broken_reason`.
 """
 
 from __future__ import annotations
@@ -96,13 +99,16 @@ def _to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _stage(x, device: torch.device) -> torch.Tensor:
+def _stage(x, device: Optional[torch.device]) -> torch.Tensor:
     """A host array (or tensor) as a tensor on `device`. To CUDA: through
     pinned memory and a `non_blocking` copy on the current stream — the
     copy is queued, not waited for. A tensor already on `device` (same
     type and index; a CUDA device without one means the current device)
     comes back as it is. A failed copy raises; there is no CPU
-    fallback."""
+    fallback. `device` None keeps the argument on the host, as numpy
+    (a lockstep plane's engine arguments travel to every rank)."""
+    if device is None:
+        return _to_host(x)
     if isinstance(x, torch.Tensor):
         if x.device == indexed_device(device):
             return x
@@ -237,9 +243,12 @@ class DataPlane:
     """See module docstring.
 
     `mode` is "local" (every replica on one device, the engine's explicit
-    [R] axis). "spmd" (the reference's replica × part device mesh, with
-    `mesh`, `part_shards`, `workers` and `worker_client`) is slice F of
-    the port and raises `NotImplementedError` here.
+    [R] axis) or "spmd" (a replica × part mesh of ranks: `mesh`, or one
+    of `part_shards` shards — by default the world's ranks over the
+    replicas — built on this process's world; `workers` are the engine
+    workers of the other ranks, reached through `worker_client`, a
+    `TcpClient` by default). Semantics are identical; tests assert it
+    (tests/test_torch_spmd.py).
 
     `device` is where the engine's state lives: CUDA when None, and with
     no GPU present that raises unless the caller asks for the CPU
@@ -273,11 +282,7 @@ class DataPlane:
         spans=None,
         device=None,
     ) -> None:
-        if mode == "spmd":
-            raise NotImplementedError(
-                "DataPlane mode='spmd' (the multi-device binding) is slice F "
-                "of the port; use mode='local'")
-        if mode != "local":
+        if mode not in ("local", "spmd"):
             raise ValueError(f"unknown mode {mode!r}")
         if device is None and not torch.cuda.is_available():
             raise RuntimeError(
@@ -451,10 +456,47 @@ class DataPlane:
         # same in-order release, no standby-stream overlap.
         self.replicate_begin_fn = None
         self.replicate_wait_fn = None
-        # Local mode only (the spmd arguments belong to slice F; see the
-        # constructor's head). Every engine call below runs on
-        # self.device.
-        self.fns = make_local_fns(cfg, device=self.device)
+        # Where engine arguments are staged: the engine's device, or the
+        # host for a lockstep plane (see `_stage`).
+        self._arg_device = self.device
+        if mode == "local":
+            self.fns = make_local_fns(cfg, device=self.device)
+        else:
+            from ripplemq_tpu_torch.parallel.engine import make_spmd_fns
+            from ripplemq_tpu_torch.parallel.mesh import make_mesh, world_size
+
+            if mesh is None:
+                if part_shards is None:
+                    # Auto: every rank of the world.
+                    part_shards = max(1, world_size() // cfg.replicas)
+                    while cfg.partitions % part_shards:
+                        part_shards -= 1  # partitions must tile evenly
+                R, S = cfg.replicas, part_shards
+
+                def build():
+                    return make_spmd_fns(cfg, make_mesh(R, S, self.device))
+            else:
+                part_shards = mesh.shape["part"]
+
+                def build():
+                    return make_spmd_fns(cfg, mesh)
+            if workers:
+                # The other ranks replay every engine call
+                # (parallel.lockstep); the controller builds its own
+                # engine inside the broadcast `configure` call, because
+                # forming the mesh is a rendezvous of every rank.
+                from ripplemq_tpu_torch.parallel.lockstep import (
+                    LockstepController,
+                )
+                from ripplemq_tpu_torch.wire.transport import TcpClient
+
+                self.fns = LockstepController(
+                    build, cfg, part_shards, workers,
+                    worker_client if worker_client is not None else TcpClient(),
+                )
+                self._arg_device = None
+            else:
+                self.fns = build()
         self.max_retry_rounds = max_retry_rounds
 
         P, R = cfg.partitions, cfg.replicas
@@ -964,9 +1006,9 @@ class DataPlane:
     def _fetch_state(self, field: str) -> np.ndarray:
         """Host copy of one state leaf ([R, P]; the fused layout's named
         leaves are views of its ctrl tensor). The copy waits for every
-        round queued before it. A binding that gathers state across
-        processes provides `fetch_state` (the reference's lockstep
-        allgather, slice F); callers must hold _device_lock."""
+        round queued before it. The spmd binding (and the lockstep
+        controller around it) provides `fetch_state`, an all_gather over
+        the mesh; callers must hold _device_lock."""
         fetch = getattr(self.fns, "fetch_state", None)
         if fetch is not None:
             return fetch(self._state, field)
@@ -1622,7 +1664,7 @@ class DataPlane:
             np.broadcast_to(np.asarray(f), (K,) + np.asarray(f).shape).copy()
             for f in noop
         ])
-        dev = self.device
+        dev = self._arg_device
         for A in buckets:
             if self._stop.is_set():
                 return  # fenced/stopped mid-warm: the programs are moot
@@ -1661,7 +1703,7 @@ class DataPlane:
     def _stage_input(self, inp: StepInput) -> StepInput:
         """A round's (or chain's) host StepInput on the engine's device,
         leaf by leaf through `_stage`."""
-        return StepInput(*(None if x is None else _stage(x, self.device)
+        return StepInput(*(None if x is None else _stage(x, self._arg_device)
                            for x in inp))
 
     def warm_async(self, buckets: tuple[int, ...] = (8, 32),
@@ -1712,7 +1754,7 @@ class DataPlane:
             for i, (slot, offset, replica, _) in enumerate(batch):
                 reps[i], parts[i], offs[i] = replica, slot, offset
             try:
-                reps, parts, offs = (_stage(x, self.device) for x in (reps, parts, offs))
+                reps, parts, offs = (_stage(x, self._arg_device) for x in (reps, parts, offs))
                 with self._device_lock:
                     data, lens, count = self.fns.read_many(
                         self._state, reps, parts, offs
@@ -1837,7 +1879,7 @@ class DataPlane:
         with self._lock:
             alive = self.alive.copy()
             quorum = self.quorum.copy()
-        args = [_stage(x, self.device) for x in (cand, cterm, alive, quorum)]
+        args = [_stage(x, self._arg_device) for x in (cand, cterm, alive, quorum)]
         with self._device_lock:
             try:
                 self._state, elected, votes = self.fns.vote(
@@ -1860,7 +1902,7 @@ class DataPlane:
         partitions (recovering replica catch-up)."""
         mask = np.zeros((self.cfg.partitions,), bool)
         mask[list(partitions)] = True
-        mask = _stage(mask, self.device)
+        mask = _stage(mask, self._arg_device)
         with self._device_lock:
             try:
                 self._state = self.fns.resync(
@@ -2190,7 +2232,7 @@ class DataPlane:
                 # (pinned staging), so this thread never waits for the
                 # rounds already in flight.
                 args = (self._stage_input(inp),) + tuple(
-                    _stage(ctx[k], self.device) for k in ("entries_c", "slot_ids",
+                    _stage(ctx[k], self._arg_device) for k in ("entries_c", "slot_ids",
                                                 "alive", "quorum", "trim"))
                 step = (self.fns.step_sparse if len(ctx["chain"]) == 1
                         else self.fns.step_many_sparse)
@@ -2774,7 +2816,7 @@ class DataPlane:
                 for (p, s), v in (pid_table or {}).items()
             }
             self._pid_inflight = {}
-        image = ReplicaState(*(_stage(getattr(image, f), self.device)
+        image = ReplicaState(*(_stage(getattr(image, f), self._arg_device)
                                for f in ReplicaState._fields))
         with self._device_lock:
             self._state = self.fns.init_from(image)

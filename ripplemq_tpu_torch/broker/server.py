@@ -45,9 +45,10 @@ boots as controller (genesis or takeover), the erasure-coded
 striped sender's encode of every group commit (`StripeReplicator`'s
 `encode_kw`), the follower read plane's reconstruct on a read miss
 (`FollowerReadPlane`'s `decode_kw`) and the striped-promotion rebuild.
-Flags whose modules belong to a later slice of the port raise
-`NotImplementedError` naming it: `engine_mode="spmd"` and
-`engine_workers` (slice F).
+`engine_mode="spmd"` and `engine_workers` reach the DataPlane as in the
+reference: the controller's engine is then its cell of the mesh of this
+process's world (`parallel.mesh.init_distributed`, which the broker CLI
+calls), and a broken lockstep plane makes the controller abdicate.
 """
 
 from __future__ import annotations
@@ -103,21 +104,6 @@ from ripplemq_tpu_torch.wire.transport import (
 )
 
 log = get_logger("broker")
-
-
-def _refuse_later_slices(config: ClusterConfig, engine_mode: str,
-                         engine_workers) -> None:
-    """Raise NotImplementedError for a flag whose module belongs to a later
-    slice of the port (ROADMAP.md): the spmd engine binding and its
-    multi-host workers are slice F."""
-    if engine_mode == "spmd":
-        raise NotImplementedError(
-            "engine_mode='spmd' (the multi-device binding) is slice F of "
-            "the port; use engine_mode='local'")
-    if engine_workers:
-        raise NotImplementedError(
-            "engine_workers (multi-host lockstep workers) are slice F of "
-            "the port")
 
 
 class _UpstreamRefusal(Exception):
@@ -379,7 +365,6 @@ class BrokerServer:
         # turns one boot failure into a cascade. Flipped to False as
         # __init__'s last statement.
         self._stopped = True
-        _refuse_later_slices(config, engine_mode, engine_workers)
         if device is None and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device available: pass device='cpu' to run the "

@@ -34,10 +34,8 @@ path (`unavailable` refusals), exercised separately.
 
 Twin of `ripplemq_tpu/chaos/nemesis.py` (PyTorch port): the same code,
 importing only the port's modules; its schedules (`trace_json`) are
-byte-identical to the reference's for every seed. One op waits: the
-lockstep engine-worker kill needs the multi-host lockstep binding
-(slice F of the port), so a non-empty `lockstep_workers` raises
-`NotImplementedError` naming it.
+byte-identical to the reference's for every seed, a lockstep worker
+roster's `kill_worker` draws included.
 """
 
 from __future__ import annotations
@@ -137,13 +135,6 @@ _ELASTIC_OPS = tuple(n for n, _ in _ELASTIC_OP_WEIGHTS)
 _ELASTIC_PIDX_SPACE = 8
 
 
-def _refuse_lockstep(lockstep_workers) -> None:
-    if lockstep_workers:
-        raise NotImplementedError(
-            "kill_worker (a lockstep engine-worker roster, "
-            "parallel/lockstep.py) is slice F of the port")
-
-
 def make_schedule(
     seed: int,
     broker_ids: list[int],
@@ -169,7 +160,6 @@ def make_schedule(
     churn_storm), so any run replays byte-for-byte."""
     from ripplemq_tpu_torch.stripes.codec import RS_K, RS_M
 
-    _refuse_lockstep(lockstep_workers)
     rng = random.Random(seed)
     pool = list(_BACKEND_POOLS[backend])
     if lockstep_workers and backend == "inproc":
@@ -322,7 +312,6 @@ class Nemesis:
                  striped: bool = False,
                  elastic: bool = False,
                  churn_storm: bool = False) -> None:
-        _refuse_lockstep(lockstep_workers)
         self.cluster = cluster
         self.seed = seed
         self.backend = backend

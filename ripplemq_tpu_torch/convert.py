@@ -6,7 +6,10 @@ or the fused-ctrl layout), these functions build the port's tensors on a
 given device in the layout an `EngineConfig` asks for, and back. The
 parity tests use them to start both engines from one state. A recovered
 single-replica image (`broker.dataplane.recover_image`: the same named
-leaves without the [R] axis) crosses the same way.
+leaves without the [R] axis) crosses the same way. Under the spmd
+binding a rank holds one cell's [1, local_P, ...] shard:
+`shard_state` cuts a whole [R, P, ...] state into this rank's shard,
+and `gather_state` assembles the whole state back from every cell.
 """
 
 from __future__ import annotations
@@ -96,5 +99,34 @@ def image_to_numpy(image) -> dict[str, np.ndarray]:
     return state_to_numpy(image)
 
 
+STATE_FIELDS = ReplicaState._fields
+
+
+def shard_state(cfg: EngineConfig, state, mesh) -> ReplicaState | FusedReplicaState:
+    """A whole engine state ([R, P, ...] numpy leaves by name, either
+    layout — the reference's, from either binding) → this rank's cell of
+    `mesh` as the port's [1, local_P, ...] shard on the mesh's device,
+    fused iff `cfg.fused_control`."""
+    f = _fields(state)
+    if "ctrl" in f:
+        ctrl = np.asarray(f["ctrl"])
+        f = {**f, **{name: ctrl[..., k, :] for k, name in enumerate(CTRL_FIELDS)}}
+    r, s = mesh.coords
+    local_P = cfg.partitions // mesh.shape["part"]
+    lo = s * local_P
+    one = {name: np.asarray(f[name])[r:r + 1, lo:lo + local_P]
+           for name in STATE_FIELDS}
+    return state_from_numpy(cfg, one, mesh.device)
+
+
+def gather_state(fns, state) -> dict[str, np.ndarray]:
+    """The whole state of an spmd engine (`make_spmd_fns`, or a
+    `LockstepController` around one) as {field name: [R, P, ...] numpy}
+    in the named layout. Every rank of the mesh must call it (it is one
+    `all_gather` a leaf); each gets the whole state."""
+    return {name: fns.fetch_state(state, name) for name in STATE_FIELDS}
+
+
 __all__ = ["state_from_numpy", "input_from_numpy", "state_to_numpy",
-           "image_from_numpy", "image_to_numpy"]
+           "image_from_numpy", "image_to_numpy", "shard_state",
+           "gather_state"]

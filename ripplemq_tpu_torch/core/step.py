@@ -21,6 +21,15 @@ separate write phase (`ops.append`), called by the engine.
 Arithmetic stays in int32 as in the reference (torch int32 sums are
 taken with `dtype=torch.int32`, so wrap-around behaves the same); int64
 appears only as an index.
+
+Every replica reduction goes through one small object, the replica
+axis (`ReplicaAxis`): the leader broadcasts (`_bcast_from_leader`), the
+ballot and the vote count (`sum`), and the commit index (`max`). The
+default, `LOCAL`, holds the whole axis as dim 0 and reduces it with
+`x.sum(0)` / `x.amax(0)`, adding no launch. The spmd binding
+(`parallel.engine.make_spmd_fns`) passes an axis whose leaves hold ONE
+replica's [1, local_P, ...] shard: its `sum` / `max` take that local
+partial and `all_reduce` it over the mesh's replica group.
 """
 
 from __future__ import annotations
@@ -41,11 +50,36 @@ from ripplemq_tpu_torch.core.state import (
 _I32 = torch.int32
 
 
-def _bcast_from_leader(value: torch.Tensor, is_leader: torch.Tensor) -> torch.Tensor:
+class ReplicaAxis:
+    """The replica axis held whole on this device: dim 0 of every leaf.
+
+    `ids(R, device)` are the replica ids of dim 0's rows ([n, 1] int32),
+    `rows(alive)` is a [P, R] liveness mask for those rows ([n, P]), and
+    `sum` / `max` reduce dim 0. A binding that shards the axis overrides
+    all four (see the module docstring)."""
+
+    def ids(self, R: int, device) -> torch.Tensor:
+        return torch.arange(R, dtype=_I32, device=device)[:, None]
+
+    def rows(self, alive: torch.Tensor) -> torch.Tensor:
+        return alive.t()
+
+    def sum(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        return x.sum(0, dtype=x.dtype if dtype is None else dtype)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax(0)
+
+
+LOCAL = ReplicaAxis()
+
+
+def _bcast_from_leader(value: torch.Tensor, is_leader: torch.Tensor,
+                       axis: ReplicaAxis = LOCAL) -> torch.Tensor:
     """Each partition's leader's value: [R, ...] masked by is_leader
     [R, P] (broadcast over trailing dims), summed over the replica axis."""
     mask = is_leader.reshape(is_leader.shape + (1,) * (value.ndim - is_leader.ndim))
-    return torch.where(mask, value, torch.zeros_like(value)).sum(0, dtype=value.dtype)
+    return axis.sum(torch.where(mask, value, torch.zeros_like(value)))
 
 
 def _normalize_alive(alive: torch.Tensor, P: int, R: int) -> torch.Tensor:
@@ -108,7 +142,8 @@ class _Ballot(NamedTuple):
 
 
 def _ballot(cfg: EngineConfig, log_end, last_term, current_term, led,
-            inp: StepInput, alive, quorum, trim) -> _Ballot:
+            inp: StepInput, alive, quorum, trim,
+            axis: ReplicaAxis = LOCAL) -> _Ballot:
     """Acks and the ballot, shared by both layouts. `led(lead_mask)`
     returns the leader's (log_end, last_term) as two [P] tensors."""
     S, B, R, P = cfg.slots, cfg.max_batch, cfg.replicas, cfg.partitions
@@ -124,8 +159,8 @@ def _ballot(cfg: EngineConfig, log_end, last_term, current_term, led,
     advance = _padded_advance(counts)                              # [P]
 
     alive = _normalize_alive(alive, P, R)                          # [P, R]
-    self_alive = alive.t()                                         # [R, P]
-    rep = torch.arange(R, dtype=_I32, device=dev)[:, None]         # [R, 1]
+    self_alive = axis.rows(alive)                                  # [R, P]
+    rep = axis.ids(R, dev)                                         # [R, 1]
     leader_known = (inp.leader >= 0) & (inp.leader < R)            # [P]
     is_leader = (inp.leader[None, :] == rep) & leader_known        # [R, P]
     lead_idx = inp.leader.clamp(0, R - 1).long()[:, None]
@@ -147,7 +182,7 @@ def _ballot(cfg: EngineConfig, log_end, last_term, current_term, led,
            & (capacity_ok & has_work)[None, :])                    # [R, P]
 
     # 3. ballot before any write.
-    votes = ack.sum(0, dtype=_I32)                                 # [P]
+    votes = axis.sum(ack, dtype=_I32)                              # [P]
     committed = votes >= quorum
     do_write = ack & committed[None, :]
     wrote_rows = do_write & (advance > 0)[None, :]
@@ -161,17 +196,18 @@ def replica_control(
     alive: torch.Tensor,                # bool [R] or [P, R]
     quorum: torch.Tensor | None = None,  # int32 [P]
     trim: torch.Tensor | None = None,    # int32 [P] — retention watermark
+    axis: ReplicaAxis = LOCAL,
 ) -> tuple[ReplicaState, ControlOut]:
     """One round's control phase for every replica: the ballot and all
     scalar-state updates. The returned state holds NEW tensors for every
     field except `log_data` (the write phase owns that)."""
 
     def led(mask):
-        return (_bcast_from_leader(state.log_end, mask),
-                _bcast_from_leader(state.last_term, mask))
+        return (_bcast_from_leader(state.log_end, mask, axis),
+                _bcast_from_leader(state.last_term, mask, axis))
 
     b = _ballot(cfg, state.log_end, state.last_term, state.current_term,
-                led, inp, alive, quorum, trim)
+                led, inp, alive, quorum, trim, axis)
     adv_target = (b.base + b.advance)[None, :]
     new_log_end = torch.where(b.wrote_rows, adv_target, state.log_end)
     new_last_term = torch.where(b.wrote_rows, inp.term[None, :], state.last_term)
@@ -188,7 +224,7 @@ def replica_control(
         offsets=new_offsets,
     )
     out = StepOutput(base=b.base, votes=b.votes, committed=b.committed,
-                     commit=new_commit.amax(0))
+                     commit=axis.max(new_commit))
     return new_state, ControlOut(out, b.wrote_rows,
                                  _write_extent(cfg, inp, b.advance))
 
@@ -200,6 +236,7 @@ def replica_control_fused(
     alive: torch.Tensor,
     quorum: torch.Tensor | None = None,
     trim: torch.Tensor | None = None,
+    axis: ReplicaAxis = LOCAL,
 ) -> tuple[FusedReplicaState, ControlOut]:
     """replica_control on the stacked [R, K, P] ctrl state: the two
     leader broadcasts ride one masked [2, P] sum and the four scalar
@@ -210,11 +247,12 @@ def replica_control_fused(
     current_term, commit = ctrl[:, 2], ctrl[:, 3]
 
     def led(mask):
-        pair = _bcast_from_leader(ctrl[:, 0:2], mask[:, None, :])  # [2, P]
+        pair = _bcast_from_leader(ctrl[:, 0:2], mask[:, None, :],
+                                  axis)                            # [2, P]
         return pair[0], pair[1]
 
     b = _ballot(cfg, log_end, last_term, current_term, led, inp, alive,
-                quorum, trim)
+                quorum, trim, axis)
     adv_target = b.base + b.advance                                # [P]
     conds = torch.stack([
         b.wrote_rows,                                              # log_end
@@ -228,7 +266,7 @@ def replica_control_fused(
 
     new_state = state._replace(ctrl=new_ctrl, offsets=new_offsets)
     out = StepOutput(base=b.base, votes=b.votes, committed=b.committed,
-                     commit=new_ctrl[:, 3].amax(0))
+                     commit=axis.max(new_ctrl[:, 3]))
     return new_state, ControlOut(out, b.wrote_rows,
                                  _write_extent(cfg, inp, b.advance))
 
@@ -242,28 +280,30 @@ def _vote_core(
     cand_term: torch.Tensor,     # int32 [P]
     alive: torch.Tensor,
     quorum: torch.Tensor | None,
+    axis: ReplicaAxis = LOCAL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     R, P = cfg.replicas, cfg.partitions
     dev = log_end.device
     alive = _normalize_alive(alive, P, R)                          # [P, R]
     if quorum is None:
         quorum = torch.full((P,), cfg.quorum, dtype=_I32, device=dev)
-    rep = torch.arange(R, dtype=_I32, device=dev)[:, None]
+    rep = axis.ids(R, dev)
     electing = (cand >= 0) & (cand < R)                            # [P]
     is_cand = (cand[None, :] == rep) & electing                    # [R, P]
-    self_alive = alive.t()                                         # [R, P]
+    self_alive = axis.rows(alive)                                  # [R, P]
     cand_alive = torch.where(
         electing, alive.gather(1, cand.clamp(0, R - 1).long()[:, None])[:, 0],
         torch.zeros_like(electing))
 
-    c_end = _bcast_from_leader(log_end, is_cand & self_alive)[None, :]
-    c_last_term = _bcast_from_leader(last_term, is_cand & self_alive)[None, :]
+    c_end = _bcast_from_leader(log_end, is_cand & self_alive, axis)[None, :]
+    c_last_term = _bcast_from_leader(last_term, is_cand & self_alive,
+                                     axis)[None, :]
     up_to_date = (c_last_term > last_term) | (
         (c_last_term == last_term) & (c_end >= log_end)
     )
     grant = (electing[None, :] & self_alive & cand_alive[None, :]
              & (cand_term[None, :] > current_term) & up_to_date)   # [R, P]
-    votes = grant.sum(0, dtype=_I32)
+    votes = axis.sum(grant, dtype=_I32)
     elected = votes >= quorum
     new_term = torch.where(grant, cand_term[None, :], current_term)
     return new_term, elected, votes
@@ -276,12 +316,13 @@ def vote_step(
     cand_term: torch.Tensor,
     alive: torch.Tensor,
     quorum: torch.Tensor | None = None,
+    axis: ReplicaAxis = LOCAL,
 ) -> tuple[ReplicaState, torch.Tensor, torch.Tensor]:
     """One RequestVote round (Raft §5.4.1 up-to-date check): returns
     (state', elected [P] bool, votes [P] int32)."""
     new_term, elected, votes = _vote_core(
         cfg, state.log_end, state.last_term, state.current_term,
-        cand, cand_term, alive, quorum,
+        cand, cand_term, alive, quorum, axis,
     )
     return state._replace(current_term=new_term), elected, votes
 
@@ -293,11 +334,12 @@ def vote_step_fused(
     cand_term: torch.Tensor,
     alive: torch.Tensor,
     quorum: torch.Tensor | None = None,
+    axis: ReplicaAxis = LOCAL,
 ) -> tuple[FusedReplicaState, torch.Tensor, torch.Tensor]:
     """vote_step on the stacked-ctrl state: the grant lands in ctrl row 2."""
     new_term, elected, votes = _vote_core(
         cfg, state.ctrl[:, 0], state.ctrl[:, 1], state.ctrl[:, 2],
-        cand, cand_term, alive, quorum,
+        cand, cand_term, alive, quorum, axis,
     )
     new_ctrl = state.ctrl.clone()
     new_ctrl[:, 2] = new_term

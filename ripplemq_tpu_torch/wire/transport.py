@@ -349,13 +349,34 @@ class TcpServer:
         self._pool.shutdown(wait=False)
 
 
+def connect(host: str, port: int, timeout: float,
+            source_address=None) -> socket.socket:
+    """`socket.create_connection`, refusing a connection to itself. A
+    client port taken from the ephemeral range can equal the port it
+    dials; when nothing listens there yet, TCP's simultaneous open
+    connects the socket to itself, and the caller would then hear its
+    own request as the peer's answer. Such a socket is closed and the
+    connect raises ConnectionRefusedError, like the refused dial it is."""
+    sock = socket.create_connection((host, port), timeout=timeout,
+                                    source_address=source_address)
+    try:
+        if sock.getsockname() == sock.getpeername():
+            raise ConnectionRefusedError(
+                f"connection to {host}:{port} reached its own socket "
+                f"(nothing listens there)")
+    except OSError:
+        sock.close()
+        raise
+    return sock
+
+
 class _Conn:
     """One pooled client connection with a reader thread matching request
     ids to futures (pipelining)."""
 
     def __init__(self, addr: str, connect_timeout: float) -> None:
         host, port_s = addr.rsplit(":", 1)
-        self.sock = socket.create_connection((host, int(port_s)), timeout=connect_timeout)
+        self.sock = connect(host, int(port_s), connect_timeout)
         self.sock.settimeout(None)
         self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self.write_lock = make_lock("_Conn.write_lock")

@@ -3,9 +3,10 @@
 local tests) and `tests/test_settle_pipeline.py` (the pipelined settle
 window: in-order acks, settle-gated reads, fencing drains the window,
 window 1 serializes). Same scenarios and assertions on a port plane
-built with `device="cpu"`. The spmd chain test waits for slice F, and
-`test_read_coalesce_s_constructor_and_config`'s ClusterConfig half for
-slice D (ROADMAP.md); its constructor half is twinned here."""
+built with `device="cpu"`. The spmd chain test's twin is in
+`tests/test_torch_spmd.py`;
+`test_read_coalesce_s_constructor_and_config`'s ClusterConfig half waits
+for slice D (ROADMAP.md); its constructor half is twinned here."""
 
 from __future__ import annotations
 

@@ -192,27 +192,41 @@ def test_schedule_never_crashes_the_majority():
 
 
 def test_lockstep_worker_kill_op():
-    """The reference draws kill_worker from the pool when the cluster
-    runs a lockstep worker roster; the lockstep binding
-    (parallel/lockstep.py) is slice F of the port, so the port's
-    schedule and nemesis refuse a roster by name instead of drawing an
-    op nothing here can serve. Without one, the pool never holds it."""
+    """With a lockstep worker roster the schedule pool includes
+    kill_worker, and applying it downs the worker endpoint (exercising
+    the broken-plane → abdication path in a lockstep deployment); the
+    draws are the reference's, and without a roster the pool never
+    holds it."""
+    from ripplemq_tpu.chaos.nemesis import make_schedule as ref_schedule
     from ripplemq_tpu_torch.chaos.cluster import make_cluster_config
     from ripplemq_tpu_torch.chaos.nemesis import Nemesis
     from ripplemq_tpu_torch.wire import InProcNetwork
 
-    with pytest.raises(NotImplementedError, match="slice F"):
-        make_schedule(0, [0, 1, 2], phases=2, ops_per_phase=3,
-                      lockstep_workers=("w0", "w1"))
+    assert any(
+        op["op"] == "kill_worker"
+        for seed in range(40)
+        for ops in make_schedule(seed, [0, 1, 2], phases=2,
+                                 ops_per_phase=3,
+                                 lockstep_workers=("w0", "w1"))
+        for op in ops
+    ), "kill_worker never drawn from the lockstep op pool"
+    for seed in range(40):
+        kw = dict(phases=2, ops_per_phase=3, lockstep_workers=("w0", "w1"))
+        assert (make_schedule(seed, [0, 1, 2], **kw)
+                == ref_schedule(seed, [0, 1, 2], **kw))
 
     class _Stub:
         config = make_cluster_config(3)
         net = InProcNetwork()
         brokers = {0: None, 1: None, 2: None}
 
-    with pytest.raises(NotImplementedError, match="slice F"):
-        Nemesis(_Stub(), seed=0, phases=1, lockstep_workers=("w0",),
-                schedule=[[{"op": "kill_worker", "worker": "w0"}]])
+    stub = _Stub()
+    nem = Nemesis(stub, seed=0, phases=1, lockstep_workers=("w0",),
+                  schedule=[[{"op": "kill_worker", "worker": "w0"}]])
+    nem.run_phase(0)
+    assert "w0" in stub.net._down
+    nem.heal_phase(0)
+    assert "w0" not in stub.net._down
     assert not any(
         op["op"] == "kill_worker"
         for seed in range(40)

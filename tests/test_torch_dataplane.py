@@ -346,10 +346,27 @@ def test_postmortem_reads_the_device_scalars(dp):
 
 
 def test_spmd_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slice F"):
+    """mode="spmd" binds the plane to a mesh of ranks: with no world
+    joined only a one-cell mesh exists (it forms a world of one, in this
+    process), and more replicas than ranks is refused with the numbers.
+    The one-cell plane commits and reads like a local one."""
+    from ripplemq_tpu_torch.parallel import mesh
+
+    with pytest.raises(ValueError, match="need 3 ranks .* the world has 1"):
         DataPlane(port_cfg(), mode="spmd", device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         DataPlane(port_cfg(), mode="bogus", device="cpu")
+    dp = DataPlane(port_cfg(replicas=1), mode="spmd", device="cpu")
+    try:
+        assert dp.fns.mesh.shape == {"replica": 1, "part": 1}
+        dp.start()
+        dp.set_leader(0, 0, 1)
+        assert dp.submit_append(0, [b"s0", b"s1"]).result(timeout=10) == 0
+        assert dp.read(0, 0, replica=0)[0] == [b"s0", b"s1"]
+        assert dp.log_ends().shape == (1, 4)
+    finally:
+        dp.stop()
+        mesh.shutdown()
 
 
 class _OnCard(torch.Tensor):

@@ -34,7 +34,7 @@ import pathlib
 import pytest
 import torch
 
-from tests.torch_port_modules import PORT_TEST_MODULES, admit
+from tests.torch_port_modules import PORT_TEST_MODULES, SLOW_PORT_MODULES, admit
 
 admit(__name__)
 
@@ -64,8 +64,9 @@ def _imported_roots(tree: ast.AST) -> set[str]:
 
 def test_admission_list_matches_files_on_disk():
     on_disk = {p.stem for p in (REPO / "tests").glob("test_torch_*.py")}
-    assert set(PORT_TEST_MODULES) == on_disk
-    assert len(PORT_TEST_MODULES) == len(set(PORT_TEST_MODULES))
+    listed = PORT_TEST_MODULES + SLOW_PORT_MODULES
+    assert set(listed) == on_disk
+    assert len(listed) == len(set(listed))
 
 
 @pytest.mark.parametrize("sub", ["broker", "chaos", "client", "groups",
@@ -322,16 +323,23 @@ def test_cli_without_device_exits_nonzero_when_no_gpu(tmp_path):
     assert "--device cpu" in out.stderr, out.stderr
 
 
-@pytest.mark.parametrize("args", [
-    ("--coordinator", "127.0.0.1:1234"),
-    ("--num-hosts", "2"),
-    ("--engine-workers", "127.0.0.1:1235"),
-    ("--engine-mode", "spmd"),
-], ids=lambda a: a[0].lstrip("-"))
-def test_cli_multi_device_flags_name_slice_f(tmp_path, args):
+@pytest.mark.parametrize("args,names", [
+    (("--coordinator", "127.0.0.1:1234", "--num-hosts", "2"),
+     "--engine-workers"),
+    (("--num-hosts", "2", "--coordinator", "127.0.0.1:1234",
+      "--engine-workers", "127.0.0.1:1235"), "--engine-mode spmd"),
+    (("--engine-workers", " , ", "--coordinator", "127.0.0.1:1234",
+      "--num-hosts", "2", "--engine-mode", "spmd"), "--engine-workers"),
+    (("--engine-mode", "mesh"), "invalid choice"),
+], ids=["coordinator", "num-hosts", "engine-workers", "engine-mode"])
+def test_cli_multi_device_flags_name_slice_f(tmp_path, args, names):
+    """The multi-process flags are the reference's, with its checks: a
+    world of more than one rank needs engine workers and the spmd mode,
+    refused (exit 2, naming the missing flag) before the world is
+    joined; the engine modes are local and spmd."""
     out = _run_cli(tmp_path, "--device", "cpu", *args)
     assert out.returncode == 2
-    assert "slice F" in out.stderr, out.stderr
+    assert names in out.stderr, out.stderr
 
 
 @pytest.mark.parametrize("kw", [
@@ -339,12 +347,17 @@ def test_cli_multi_device_flags_name_slice_f(tmp_path, args):
     {"engine_workers": ["127.0.0.1:1"]},
 ], ids=["spmd", "engine_workers"])
 def test_server_later_slice_flags_raise(kw):
+    """`engine_mode="spmd"` and `engine_workers` are taken as the
+    reference takes them and reach the controller's DataPlane when it
+    boots; building the server starts nothing."""
     from ripplemq_tpu_torch.broker.server import BrokerServer
     from ripplemq_tpu_torch.wire import InProcNetwork
 
-    with pytest.raises(NotImplementedError, match="slice F"):
-        BrokerServer(0, _port_cluster_config(), net=InProcNetwork(),
+    b = BrokerServer(0, _port_cluster_config(), net=InProcNetwork(),
                      device="cpu", **kw)
+    assert b._engine_mode == kw.get("engine_mode", "local")
+    assert b._engine_workers == kw.get("engine_workers", [])
+    assert b.dataplane is None
 
 
 def _plane_of(b, flag):

@@ -5,8 +5,9 @@ store serves history, partitions never wedge), `tests/test_store_gc.py`
 `tests/test_settled_gap.py` (replication-failed rounds stay invisible on
 every read path, across a ring wrap and a boot replay). Same scenarios
 and assertions on a port plane built with `device="cpu"`; stores are the
-port's. Waiting for later slices (ROADMAP.md): the spmd ring-wrap test
-(F), the retention ClusterConfig check and the long-poll park (D)."""
+port's. The spmd ring-wrap test's twin is in `tests/test_torch_spmd.py`;
+waiting for later slices (ROADMAP.md): the retention ClusterConfig check
+and the long-poll park (D)."""
 
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ PORT_TEST_MODULES = (
     "test_torch_controller_failover",
     "test_torch_dataplane",
     "test_torch_dataplane_parity",
+    "test_torch_degradation",
     "test_torch_engine",
     "test_torch_failover",
     "test_torch_follower_reads",
@@ -37,8 +38,10 @@ PORT_TEST_MODULES = (
     "test_torch_hostplane_chaos",
     "test_torch_hostraft",
     "test_torch_idempotence",
+    "test_torch_lockstep",
     "test_torch_manager",
     "test_torch_metadata",
+    "test_torch_multichip_smoke",
     "test_torch_obs",
     "test_torch_planes_parity",
     "test_torch_port_hygiene",
@@ -58,6 +61,8 @@ PORT_TEST_MODULES = (
     "test_torch_spans",
     "test_torch_split",
     "test_torch_split_chaos",
+    "test_torch_spmd",
+    "test_torch_spmd_parity",
     "test_torch_step",
     "test_torch_storage",
     "test_torch_stripes",
@@ -67,9 +72,18 @@ PORT_TEST_MODULES = (
 )
 
 
+# The port's slow-marked twins of slow reference modules: the audit
+# accepts them through their `slow` mark, so they stay out of the
+# allowlist (a module both allowlisted and slow-marked is refused).
+SLOW_PORT_MODULES = (
+    "test_torch_lockstep_drill",
+    "test_torch_multihost",
+)
+
+
 def admit(name: str) -> None:
     """Admit the port's test modules; `name` is the caller's module name."""
     name = name.rsplit(".", 1)[-1]
-    assert name in PORT_TEST_MODULES, (
+    assert name in PORT_TEST_MODULES + SLOW_PORT_MODULES, (
         f"{name} is not listed in tests/torch_port_modules.py")
     markers.FAST_MODULES.update(PORT_TEST_MODULES)
