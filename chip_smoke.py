@@ -3,18 +3,20 @@
 
     python3 chip_smoke.py [--seed N] [--dataplane-only | --control-only
                                       | --broker-only | --planes-only
-                                      | --spmd-only | --gloo-probe]
+                                      | --spmd-only | --witness-only
+                                      | --gloo-probe]
 
 `--dataplane-only` builds the kernels and runs only phase 8,
 `--control-only` only phase 9, `--broker-only` only phase 10,
 `--planes-only` only phase 11 (after the RS kernel's check at the stripe
-ladder's widths) and `--spmd-only` only phase 12, without the result
-line: loops for measuring the DataPlane, the control path, the broker
-path (`--broker-only` also times the consumers' drain with the
-reference's auto-commit against the port's), the planes path and the
-lockstep path. `--gloo-probe` checks only the spmd binding's gloo
-collectives on CUDA tensors across 2 and 6 ranks of the card, their
-latency, and that a killed peer makes a collective raise. Runs only where
+ladder's widths), `--spmd-only` only phase 12 and `--witness-only` only
+phase 13, without the result line: loops for measuring the DataPlane,
+the control path, the broker path (`--broker-only` also times the
+consumers' drain with the reference's auto-commit against the port's),
+the planes path, the lockstep path and the witness path. `--gloo-probe`
+checks only the spmd binding's gloo collectives on CUDA tensors across
+2 and 6 ranks of the card, their latency, and that a killed peer makes
+a collective raise. Runs only where
 `torch.cuda.is_available()`; exits nonzero at once
 elsewhere, and when run outside a checkout of the repository (the port's
 package must be importable next to it). Every phase prints one line; a
@@ -194,20 +196,37 @@ phase that fails raises, and the script exits nonzero with no result.
    idempotent identity), the plane must raise and break, the controller
    abdicate and release it, a standby promote on its local engine and
    serve, and every acked message read back exactly once;
-13. times: each kernel's device time alone (the profiler's events by
+13. the witness path: the port's lint (`ripplemq_tpu_torch.analysis`)
+   run clean on this host (per-rule counts and runtimes), the static
+   lock graph's closure, then the runtime lock witness on the card,
+   reset before and disabled after: (a) the CPU twins' in-process chaos
+   runs (seed 1, full copy; seed 11, the striped schedule of a crash
+   with a disk flip then a stripe-holder kill) with every broker's
+   plane on CUDA, each with no violation, its witnessed orderings
+   acyclic and inside the closure; (b) the broker path's topology at
+   full width (1024 partitions x RF 3, slots 4608, B 512, fused +
+   packed, 64 MiB erasure-coded segments, the standbys CLI processes)
+   with `lock_witness: true`: 16 x 64 awaited single-message produces
+   and a bulk of 8 x 96 batches of 512 (a depth cut of the broker
+   path's traffic), every acked message read back exactly, the packed
+   append at least once a controller round, the controller's witness
+   report acyclic with no ordering outside the closure (its rates are
+   taken with the witness on);
+14. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
    the stripe encode at the ladder's 16 KiB and top classes;
-14. a JSON line naming each ported kernel (gf_matmul's launches split by
+15. a JSON line naming each ported kernel (gf_matmul's launches split by
    consumer and by path; the append variants' launches on the dataplane
    path as `launches_dataplane`, on the control path as
    `launches_control`, each kernel's on the broker path as
    `launches_broker` and on the planes path as `launches_planes`, and on
    the lockstep path as `launches_spmd`: the legacy append's in the 1x1
-   arm, the packed append's a rank of the lockstep broker), then
+   arm, the packed append's a rank of the lockstep broker; and on the
+   witness path as `launches_witness`), then
    the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
@@ -370,9 +389,10 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def _append_case(ops, log_k, log_p, entries, ids, base, do_write, ext, label,
-                 errs, name, fresh):
+                 errs, name, fresh, need_rows=True) -> int:
     """One append through the kernel and the plain version, the whole logs
-    compared; `fresh` = the log pair is new to this case."""
+    compared; `fresh` = the log pair is new to this case. Returns the rows
+    written; fails on none unless not `need_rows`."""
     ops.append_rows_active(log_k, entries, ids, base, do_write, extents=ext)
     ops.append_rows_active_plain(log_p, entries, ids, base, do_write, ext)
     torch.cuda.synchronize()
@@ -384,9 +404,10 @@ def _append_case(ops, log_k, log_p, entries, ids, base, do_write, ext, label,
     print(f"kernel-vs-plain: {name} {label}: rows written={rows} whole "
           f"{log_k.numel()} B {'(fresh) ' if fresh else ''}log equal={equal} "
           f"max_abs_err={err}", flush=True)
-    if not equal or rows == 0:
+    if not equal or (need_rows and rows == 0):
         raise AssertionError(f"{name} {label} disagrees with its plain "
                              f"version (or wrote nothing)")
+    return rows
 
 
 def _offset_view(shape, offset, g):
@@ -414,6 +435,64 @@ SMALL_APPEND = [  # (label, R, P, S, SB, B, A, log offset, entries offset)
     ("entries +1 B", 5, 64, 512, 128, 256, 64, 0, 1),
     ("log +3 B", 5, 64, 512, 128, 256, 64, 3, 0),
 ]
+
+
+CHAOS_ROUNDS = 8  # appends on one log pair, as a chaos run's rounds are
+
+
+def chaos_engines() -> list:
+    """The engines of `run_chaos`'s clusters at its default topic: the
+    in-process one (the witness path's chaos runs) and the process one
+    (the planes path's), each derived from the config builders."""
+    import inspect
+
+    from ripplemq_tpu_torch.chaos.cluster import make_cluster_config
+    from ripplemq_tpu_torch.chaos.harness import run_chaos
+    from ripplemq_tpu_torch.chaos.proc_cluster import make_proc_cluster_config
+
+    kw = inspect.signature(run_chaos).parameters
+    topics = (Topic("chaos", kw["partitions"].default,
+                    kw["replication"].default),)
+    return [("in-process chaos engine",
+             make_cluster_config(n_brokers=kw["n_brokers"].default,
+                                 topics=topics).engine),
+            ("process chaos engine",
+             make_proc_cluster_config([0] * kw["n_brokers"].default,
+                                      topics=topics).engine)]
+
+
+def chaos_append_vs_plain(ops, seed) -> dict:
+    """Both append variants against the plain version at the chaos
+    clusters' engines, CHAOS_ROUNDS appends on one log pair (bases from
+    -B, windows to the ring's end), the whole log compared after each.
+    A = P: with P <= 8 that is the DataPlane's only active-set bucket."""
+    g = torch.Generator(device=DEV).manual_seed(seed + 7)
+    errs = {k: 0 for k in KERNELS}
+    for label, ec in chaos_engines():
+        R, P, S, SB, B = (ec.replicas, ec.partitions, ec.slots,
+                          ec.slot_bytes, ec.max_batch)
+        if P > 8:
+            raise AssertionError(f"{label}: P={P} has more than one "
+                                 f"active-set bucket")
+        for packed in (False, True):
+            name = "append_active_packed" if packed else "append_active"
+            log_k = torch.empty((R, P, S + B, SB), dtype=torch.uint8,
+                                device=DEV).random_(generator=g)
+            log_p = log_k.clone()
+            rows = 0
+            for i in range(CHAOS_ROUNDS):
+                entries, ids, base, do_write, ext = random_case(
+                    g, ec, P, to_ring_end=True, base_lo=-B)
+                rows += _append_case(
+                    ops, log_k, log_p, entries, ids, base, do_write,
+                    ext if packed else None,
+                    f"{label} (R={R} P={P} S={S} SB={SB} B={B} A={P}, "
+                    f"bases from -B) round {i}", errs, name, i == 0,
+                    need_rows=False)
+            if rows == 0:
+                raise AssertionError(f"{name} {label}: {CHAOS_ROUNDS} "
+                                     f"appends wrote nothing")
+    return errs
 
 
 def kernel_vs_plain(ops, cfg, seed) -> dict:
@@ -475,31 +554,52 @@ def kernel_vs_plain(ops, cfg, seed) -> dict:
                          ext if packed else None,
                          f"{label} (R={R} P={P} S={S} B={B} A={A}, bases "
                          f"from -B)", errs, name, True)
+    for name, err in chaos_append_vs_plain(ops, seed).items():
+        errs[name] = max(errs[name], err)
     return errs
 
 
-def kernel_only_ms(fn, name: str, reps: int) -> float:
+PROFILE_WINDOWS = 3  # profiler windows a kernel time may take
+
+
+def kernel_only_ms(fn, name: str, reps: int, counter) -> float:
     """Mean device time of one launch of the kernels whose name holds
     `name`, over `reps` calls of `fn` (one launch each), by the
     profiler's device events: only the kernel is in the window, not the
-    wrapper's host time nor the gaps between launches. Fails when the
-    profiler sees no such kernel, or not one per call."""
+    wrapper's host time nor the gaps between launches. `counter()` reads
+    the wrapper's own launch count, which must rise by exactly `reps` in
+    every window. Only a window in which the profiler saw exactly one
+    such kernel per call is used: a window whose wrapper launched `reps`
+    times but whose profiler lost device events (seen once on the card,
+    40 of 60) is reported and measured again; fails when PROFILE_WINDOWS
+    windows in a row miss."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in ev)
-    if count != reps:
-        raise AssertionError(f"the profiler saw {count} launches of a "
-                             f"'{name}' kernel in {reps} calls")
-    return sum(e.self_device_time_total for e in ev) / count / 1e3
+    for _ in range(PROFILE_WINDOWS):
+        before = counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = counter() - before
+        if launched != reps:
+            raise AssertionError(f"the wrapper counted {launched} launches "
+                                 f"of a '{name}' kernel in {reps} calls")
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in ev)
+        if count == reps:
+            return sum(e.self_device_time_total for e in ev) / count / 1e3
+        print(f"time: the profiler saw {count} launches of a '{name}' "
+              f"kernel in {reps} calls, the wrapper counted {launched}; "
+              f"window discarded (the events were lost by the profiler)",
+              flush=True)
+    raise AssertionError(f"the profiler saw {count} launches of a "
+                         f"'{name}' kernel in {reps} calls, "
+                         f"{PROFILE_WINDOWS} windows in a row")
 
 
 ROTATE = 3  # input buffers cycled by the timings: > 50 MB, past the L2
@@ -537,7 +637,8 @@ def time_kernels(ops, cfg, seed, card) -> dict:
             ops.append_rows_active(log, rot[next(turn) % ROTATE], ids, base,
                                    do_write, extents=ext)
 
-        kernel_ms = kernel_only_ms(launch, "append_active_kernel", reps=60)
+        kernel_ms = kernel_only_ms(launch, "append_active_kernel", reps=60,
+                                   counter=lambda: ops.LAUNCHES[name])
         wrapper_ms = cuda_time_ms(launch, reps=60)
         plain_ms = cuda_time_ms(lambda: ops.append_rows_active_plain(
             log, entries, ids, base, do_write, ext), reps=5)
@@ -1025,8 +1126,9 @@ def time_rs(seed, card) -> dict:
 
         path = "vec16" if n % 16 == 0 else "realign"
         reps = 60 if n > ladder[-1] else 200
-        kernel_ms = kernel_only_ms(launch, f"gf_matmul_{path}_kernel",
-                                   reps=reps)
+        kernel_ms = kernel_only_ms(
+            launch, f"gf_matmul_{path}_kernel", reps=reps,
+            counter=lambda: rs_ops.LAUNCHES[f"gf_matmul_{path}"])
         wrapper_ms = cuda_time_ms(launch, reps=reps)
         plain_ms = cuda_time_ms(lambda: rs_ops.gf_matmul_plain(m, rot[0]),
                                 reps=5)
@@ -2822,41 +2924,33 @@ def store_digest(store_dir) -> collections.Counter:
                                for t, s, b, p in scan_store(store_dir))
 
 
-def broker_path(seed, card, workdir, commit_ab=False) -> dict:
-    """Phase 10 (see the module docstring): the port's BrokerServer as
-    the controller in this process on the card, two standby broker
-    processes (`python -m ripplemq_tpu_torch.broker --device cuda`), the
-    port's clients in a child process; traffic, read-back, a controller
-    failover, read-back again. No cut to the topology.
-
-    `commit_ab`: after the first drain, drain everything again with the
-    reference's auto-commit (consumer set r), then with the port's (c),
-    and report both rates and how many partitions r left committed at an
-    older offset."""
-    from ripplemq_tpu_torch.chaos.proc_cluster import ProcCluster, free_ports
+def start_topology(raw, root, what):
+    """bench.py's end-to-end topology from the raw config `raw` (three
+    brokers): the port's BrokerServer 0 as the controller in this
+    process on the card, brokers 1 and 2 standby processes (`python -m
+    ripplemq_tpu_torch.broker --device cuda`) started through the port's
+    ProcCluster from its own config file; returns (config, standbys,
+    controller) once every partition is led and both standbys joined,
+    with the plane warmed. Stops what it started if that fails."""
+    from ripplemq_tpu_torch.chaos.proc_cluster import ProcCluster
     from ripplemq_tpu_torch.metadata.cluster_config import (
         load_cluster_config,
         parse_cluster_config,
     )
-    from ripplemq_tpu_torch.storage.segment import list_segment_files
 
-    t_phase = time.perf_counter()
-    root = os.path.join(workdir, "broker-path")
-    raw = broker_raw_config(free_ports(3))
+    t0 = time.perf_counter()
     config = parse_cluster_config(raw)
     cfg, P = config.engine, config.engine.partitions
-    # The standbys through the port's process cluster, from its own
-    # config file: it must load as the controller's config, or a
-    # promoted standby would boot another engine.
+    # The standbys' config file must load as the controller's config, or
+    # a promoted standby would boot another engine.
     standbys = ProcCluster(config=config, data_dir=root, device=DEV)
     if load_cluster_config(standbys.config_path) != config:
-        raise AssertionError("broker path: the standbys' config file "
-                             "differs from the controller's config")
-    ctrl_dir = os.path.join(root, "broker-0")
-    controller = clients = None
-    out = {}
+        raise AssertionError(f"{what}: the standbys' config file differs "
+                             f"from the controller's config")
+    controller = None
     try:
-        controller = BrokerServer(0, config, net=None, data_dir=ctrl_dir,
+        controller = BrokerServer(0, config, net=None,
+                                  data_dir=os.path.join(root, "broker-0"),
                                   device=DEV)
         controller.start()
         for b in (1, 2):
@@ -2871,24 +2965,55 @@ def broker_path(seed, card, workdir, commit_ab=False) -> dict:
                     and all(a.leader is not None
                             for t in tops for a in t.assignments))
 
-        wait_for(ready, "broker path: every partition led and both standbys "
-                 "joined", BROKER_WAIT_S)
+        wait_for(ready, f"{what}: every partition led and both standbys "
+                 f"joined", BROKER_WAIT_S)
         dp = controller.dataplane
         if dp.device.type != torch.device(DEV).type:
-            raise AssertionError(f"broker path: plane on {dp.device}")
+            raise AssertionError(f"{what}: plane on {dp.device}")
         dp.warm(buckets=dp.all_buckets())
         wt = controller._warm_thread
         if wt is not None:
             wt.join(timeout=BROKER_WAIT_S)
-        leaders = collections.Counter(a.leader for t in m0.get_topics()
-                                      for a in t.assignments)
-        print(f"broker path: boot: controller BrokerServer 0 on "
-              f"{dp.device} (P={P} R={cfg.replicas} slots={cfg.slots} "
-              f"B={cfg.max_batch} SB={cfg.slot_bytes}, fused_control + "
-              f"packed_writes), standby processes 1, 2 (--device {DEV}) "
-              f"joined {list(m0.current_standbys())}, leaders "
-              f"{dict(leaders)}, warmed, in "
-              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    except BaseException:
+        if controller is not None:
+            controller.stop()
+        standbys.stop()
+        raise
+    leaders = collections.Counter(a.leader for t in m0.get_topics()
+                                  for a in t.assignments)
+    print(f"{what}: boot: controller BrokerServer 0 on {dp.device} "
+          f"(P={P} R={cfg.replicas} slots={cfg.slots} B={cfg.max_batch} "
+          f"SB={cfg.slot_bytes}, fused_control + packed_writes), standby "
+          f"processes 1, 2 (--device {DEV}) joined "
+          f"{list(m0.current_standbys())}, leaders {dict(leaders)}, warmed, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return config, standbys, controller
+
+
+def broker_path(seed, card, workdir, commit_ab=False) -> dict:
+    """Phase 10 (see the module docstring): the port's BrokerServer as
+    the controller in this process on the card, two standby broker
+    processes (`python -m ripplemq_tpu_torch.broker --device cuda`), the
+    port's clients in a child process; traffic, read-back, a controller
+    failover, read-back again. No cut to the topology.
+
+    `commit_ab`: after the first drain, drain everything again with the
+    reference's auto-commit (consumer set r), then with the port's (c),
+    and report both rates and how many partitions r left committed at an
+    older offset."""
+    from ripplemq_tpu_torch.chaos.proc_cluster import free_ports
+    from ripplemq_tpu_torch.storage.segment import list_segment_files
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "broker-path")
+    raw = broker_raw_config(free_ports(3))
+    config, standbys, controller = start_topology(raw, root, "broker path")
+    cfg, P = config.engine, config.engine.partitions
+    ctrl_dir = os.path.join(root, "broker-0")
+    clients = None
+    out = {}
+    try:
+        dp = controller.dataplane
         clients = BrokerClients(dict(
             bootstrap=[b.address for b in config.brokers], partitions=P,
             max_batch=cfg.max_batch, read_batch=cfg.read_batch, seed=seed),
@@ -3938,6 +4063,172 @@ def spmd_path(seed, card, workdir) -> dict:
     return dict(errs=errs, parity=par, broker=broker)
 
 
+# ------------------------------------------------ the witness path
+
+# The in-process chaos runs the CPU twins gate on
+# (tests/test_torch_chaos.py), here with every broker's plane on the card.
+WITNESS_CHAOS = (
+    ("seed 1, full copy", dict(seed=1, phases=2, phase_s=0.5,
+                               converge_timeout_s=90.0)),
+    ("seed 11, striped", dict(
+        seed=11, n_brokers=4, phases=2, phase_s=0.5,
+        replication_mode="striped", converge_timeout_s=90.0,
+        schedule=[[{"op": "crash", "broker": 1},
+                   {"op": "disk_flip", "broker": 1, "salt": 11}],
+                  [{"op": "stripe_kill", "holder": 0}]])),
+)
+WITNESS_LAT = (16, 64)        # awaited single-message producers x messages
+WITNESS_BATCHES = 96          # bulk batches per producer (8 x 96 x 512)
+
+
+def witness_lint(card) -> dict:
+    """The port's lint on this host: per-rule counts and runtimes; the
+    tree must be clean."""
+    from ripplemq_tpu_torch.analysis import run_lint
+
+    report = run_lint()
+    rules = {r: (c["count"], len(c["waived"]), c["runtime_s"])
+             for r, c in report["checkers"].items()}
+    if not report["ok"]:
+        raise AssertionError(f"witness path: the port's lint is dirty: "
+                             f"{report['unwaived_total']} findings, stale "
+                             f"waivers {report['stale_waivers']}")
+    print(f"witness path: lint (python -m ripplemq_tpu_torch.analysis): "
+          f"clean, {len(rules)} rules in {report['runtime_s']:.3f} s on "
+          f"this host; rule: (findings, waived, s) {rules} [{card}]",
+          flush=True)
+    return dict(runtime_s=report["runtime_s"], rules=rules)
+
+
+def check_witness(rep: dict, what: str) -> None:
+    """A witness report held to the chaos harness's two checks: the
+    witnessed orderings are acyclic and inside the static closure."""
+    if not rep["edges"]:
+        raise AssertionError(f"{what}: the witness observed no ordering")
+    if not rep["acyclic"] or rep["cycles"]:
+        raise AssertionError(f"{what}: witnessed cycles {rep['cycles']}")
+    if rep.get("uncovered_edges") != []:
+        raise AssertionError(f"{what}: witnessed orderings outside the "
+                             f"static lock graph's closure: "
+                             f"{rep.get('uncovered_edges')}")
+
+
+def witness_path(seed, card, workdir) -> dict:
+    """Phase 13 (see the module docstring): the runtime lock witness on
+    the card, held to acyclicity and to containment in the port's static
+    lock graph's closure: (a) the in-process chaos runs of the CPU twins
+    with every broker's plane on the card, (b) the broker path's
+    topology at full width with `lock_witness: true` on the controller.
+    The witness is reset before and disabled after, so no other path is
+    timed with it on."""
+    from ripplemq_tpu_torch.analysis.lock_graph import default_closure
+    from ripplemq_tpu_torch.chaos.harness import run_chaos
+    from ripplemq_tpu_torch.chaos.proc_cluster import free_ports
+    from ripplemq_tpu_torch.obs import lockwitness
+
+    t_phase = time.perf_counter()
+    out = {"lint": witness_lint(card)}
+    closure = default_closure()
+    print(f"witness path: the static lock graph's closure (derived and "
+          f"declared edges): {len(closure)} orderings", flush=True)
+    out["closure"] = len(closure)
+    launches = collections.Counter()
+    lockwitness.reset()
+    try:
+        # (a) the in-process chaos runs, every broker's plane on the card.
+        out["chaos"] = {}
+        for label, kw in WITNESS_CHAOS:
+            t0 = time.perf_counter()
+            append_ops.reset_launches()
+            rs_ops.reset_launches()
+            verdict = run_chaos(device=DEV, backend="inproc",
+                                lock_witness=True, **kw)
+            ran = {**append_ops.LAUNCHES, **rs_ops.LAUNCHES}
+            launches.update(ran)
+            w = verdict["lock_witness"]
+            if verdict["violations"]:
+                raise AssertionError(f"witness path: chaos {label}: "
+                                     f"{verdict['violations']}")
+            check_witness(w, f"witness path: chaos {label}")
+            if "DataPlane._lock" not in w["locks"] or not (
+                    ran["append_active"] + ran["append_active_packed"]):
+                raise AssertionError(f"witness path: chaos {label}: locks "
+                                     f"{w['locks']}, append launches {ran}")
+            out["chaos"][label] = dict(
+                locks=len(w["locks"]), edges=len(w["edges"]), launches=ran,
+                produce_ok=verdict["counts"]["produce_ok"])
+            print(f"witness path: chaos {label} (in-process, planes on "
+                  f"{DEV}): no violation, {verdict['counts']['produce_ok']} "
+                  f"produces acked; witnessed {len(w['locks'])} locks, "
+                  f"{len(w['edges'])} orderings "
+                  f"{[tuple(e[:2]) for e in w['edges']]}, acyclic, none "
+                  f"outside the closure; kernel launches {ran}; "
+                  f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        # (b) the broker path's topology, witness on in the controller.
+        lockwitness.reset()
+        root = os.path.join(workdir, "witness-path")
+        raw = broker_raw_config(free_ports(3))
+        raw["lock_witness"] = True
+        config, standbys, controller = start_topology(
+            raw, root, "witness path")
+        cfg, P = config.engine, config.engine.partitions
+        clients = None
+        try:
+            dp = controller.dataplane
+            clients = BrokerClients(dict(
+                bootstrap=[b.address for b in config.brokers], partitions=P,
+                max_batch=cfg.max_batch, read_batch=cfg.read_batch,
+                seed=seed, lat=list(WITNESS_LAT)), root)
+            # The main path: counts zeroed just before, read just after.
+            append_ops.reset_launches()
+            rs_ops.reset_launches()
+            r0 = dp.rounds
+            lat = clients.run("LAT")
+            bulk = clients.run(f"BULK {WITNESS_BATCHES}")
+            drain = clients.run("DRAIN a")
+            clients.run("COMMITTED a")
+            rounds = dp.rounds - r0
+            ran = dict(append_ops.LAUNCHES)
+            rs_ran = dict(rs_ops.LAUNCHES)
+            rep = lockwitness.report(static_closure=closure)
+        finally:
+            if clients is not None:
+                clients.close()
+            controller.stop()
+            standbys.stop()
+        check_witness(rep, "witness path: broker topology")
+        if not ran["append_active_packed"] >= rounds > 0 \
+                or ran["append_active"] != 0:
+            raise AssertionError(f"witness path: append launches {ran} for "
+                                 f"{rounds} rounds of fused + packed")
+        launches.update(ran)
+        launches.update(rs_ran)
+        out["broker"] = dict(latency=lat, bulk=bulk, drain=drain,
+                             rounds=rounds, launches=ran, rs=rs_ran,
+                             locks=rep["locks"], edges=rep["edges"])
+        print(f"witness path: broker topology, witness on (rates taken with "
+              f"the witness on): {lat['appends_per_s']:.1f} single-message "
+              f"appends/s ({WITNESS_LAT[0]} x {WITNESS_LAT[1]} awaited), ack "
+              f"p50 {lat['p50_ms']:.3f} p99 {lat['p99_ms']:.3f} ms; bulk "
+              f"{bulk['messages']} msgs ({BROKER_PRODUCERS} producers x "
+              f"{WITNESS_BATCHES} batches of {cfg.max_batch}) "
+              f"{bulk['appends_per_s']:.1f} appends/s; all "
+              f"{drain['messages']} acked messages read back exactly; "
+              f"{rounds} controller rounds, append launches {ran} [{card}]",
+              flush=True)
+        print(f"witness path: the controller witnessed {len(rep['locks'])} "
+              f"locks {rep['locks']} and {len(rep['edges'])} orderings "
+              f"{[tuple(e) for e in rep['edges']]}: acyclic, none outside "
+              f"the static closure's {len(closure)}", flush=True)
+    finally:
+        lockwitness.disable()
+        lockwitness.reset()
+    out["launches"] = dict(launches)
+    print(f"witness path: done in {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -3974,6 +4265,9 @@ def main() -> int:
     only.add_argument("--spmd-only", action="store_true",
                       help="build the kernels and run only the lockstep "
                            "path (a measurement loop: no result line)")
+    only.add_argument("--witness-only", action="store_true",
+                      help="build the kernels and run only the witness "
+                           "path (no result line)")
     only.add_argument("--gloo-probe", action="store_true",
                       help="run only the gloo probe: the spmd binding's "
                            "collectives on CUDA tensors across 2 and 6 "
@@ -4016,6 +4310,7 @@ def main() -> int:
             broker_path(args.seed, card, workdir, commit_ab=True)
         return 0
     if args.planes_only:
+        chaos_append_vs_plain(append_ops, args.seed)
         rs_widths_vs_plain(stripe_ladder(), args.seed,
                            "the stripe ladder (every shard class)")
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
@@ -4024,6 +4319,11 @@ def main() -> int:
     if args.spmd_only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
             spmd_path(args.seed, card, workdir)
+        return 0
+    if args.witness_only:
+        chaos_append_vs_plain(append_ops, args.seed)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            witness_path(args.seed, card, workdir)
         return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
@@ -4047,6 +4347,7 @@ def main() -> int:
         broker = broker_path(args.seed, card, workdir)
         planes = planes_path(args.seed, card, workdir)
         spmd = spmd_path(args.seed, card, workdir)
+        witness = witness_path(args.seed, card, workdir)
     launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
                    for p, r in dp_runs.items()}
     launches_ctrl = ctrl["launches_control"]
@@ -4069,6 +4370,7 @@ def main() -> int:
                     launches_broker=launches_broker[name],
                     launches_planes=launches_planes[name],
                     launches_spmd=launches_spmd[name],
+                    launches_witness=witness["launches"].get(name, 0),
                     max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],
@@ -4087,6 +4389,7 @@ def main() -> int:
         launches_by_path=by_path,
         launches_broker=broker["rs_broker"]["gf_matmul"],
         launches_planes=planes["rs_planes"]["gf_matmul"],
+        launches_witness=witness["launches"].get("gf_matmul", 0),
         max_abs_err=errs["gf_matmul"], ms=enc["ms"],
         wrapper_ms=enc["wrapper_ms"], plain_ms=enc["plain_ms"],
         bound_ms=enc["bound_ms"], bound_by="bytes", library_ms=None,

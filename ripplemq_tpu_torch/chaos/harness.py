@@ -17,9 +17,9 @@ device=None)` and `run_kill_all_drill(..., device=None)` run every
 broker's device work on CUDA, raise on a host without one (naming
 `device="cpu"`), and pass the device to each cluster they build. A
 witnessed run (`lock_witness=True`) holds the witnessed graph to
-acyclicity only: the cross-check against the static lock graph
-(the reference's `analysis/lock_graph.py`) waits for the port's analysis
-package (slice G), and the verdict says so.
+acyclicity and to containment in the closure of the port's static lock
+graph (`ripplemq_tpu_torch/analysis/lock_graph.py`), as the reference
+does.
 """
 
 from __future__ import annotations
@@ -717,12 +717,12 @@ def run_chaos(
     `lock_witness=True` (in-proc backend) enables the runtime lock
     witness (obs/lockwitness.py) for the whole run: every host-path
     lock the cluster constructs records actual per-thread acquisition
-    orderings, and the verdict gains a `lock_witness` section. A
-    witnessed cycle (a deadlock that has not scheduled yet) is a
-    VIOLATION. The reference's second cross-check, witnessed edges
-    outside the static lock graph's closure, needs the static graph
-    (slice G of the port); the section's `static_closure` says it was
-    not checked.
+    orderings, and the verdict gains a `lock_witness` section. Two
+    cross-checks become VIOLATIONS: a witnessed cycle (a deadlock that
+    has not scheduled yet), and a witnessed edge outside the static
+    lock graph's transitive closure (`analysis/lock_graph.py` — an
+    ordering the AST missed via indirection must become a derived or
+    declared static edge, or the gap grows silently).
 
     `device`: every broker's device (CUDA when None; raises without a
     GPU — tests pass "cpu").
@@ -983,23 +983,28 @@ def run_chaos(
                            "in-proc only",
             }
         if witness_on:
-            # The witnessed graph must be acyclic — a cycle is a
-            # first-class violation, exactly like acked loss: a deadlock
-            # that has not scheduled yet. The containment check in the
-            # static graph's closure needs the static lock graph, which
-            # the port does not have yet: the report carries no
-            # `uncovered_edges`, and says why.
+            # The witnessed graph must be acyclic AND contained in the
+            # static graph's closure — either failure is a first-class
+            # violation, exactly like acked loss: a cycle is a deadlock
+            # that has not scheduled yet, and an uncovered edge is
+            # static-analysis coverage silently lost to indirection.
+            # (default_closure memoizes the repo parse across seeds.)
+            from ripplemq_tpu_torch.analysis.lock_graph import default_closure
             from ripplemq_tpu_torch.obs import lockwitness
 
-            wreport = lockwitness.report(static_closure=None)
-            wreport["static_closure"] = (
-                "not checked: the static lock graph "
-                "(analysis/lock_graph.py) is slice G of the port")
+            wreport = lockwitness.report(static_closure=default_closure())
             verdict["lock_witness"] = wreport
             if not wreport["acyclic"]:
                 violations.append(
                     f"lock witness observed acquisition cycles: "
                     f"{wreport['cycles']}"
+                )
+            if wreport["uncovered_edges"]:
+                violations.append(
+                    f"lock witness observed orderings outside the "
+                    f"static lock graph's closure: "
+                    f"{wreport['uncovered_edges']} — derive or declare "
+                    f"them (analysis/lock_graph.py DECLARED_EDGES)"
                 )
         if slo:
             # The degradation contract: shed

@@ -271,6 +271,39 @@ def replica_control_fused(
                                  _write_extent(cfg, inp, b.advance))
 
 
+def replica_step(
+    cfg: EngineConfig,
+    state: ReplicaState,
+    inp: StepInput,
+    alive: torch.Tensor,
+    quorum: torch.Tensor | None = None,
+    trim: torch.Tensor | None = None,
+    axis: ReplicaAxis = LOCAL,
+) -> tuple[ReplicaState, StepOutput]:
+    """Complete round for every replica: control phase + plain append.
+
+    The portable all-in-one composition (the reference's `replica_step`,
+    which it runs under plain vmap on any backend). The engine instead
+    runs `replica_control` and hands the write phase to the append
+    kernel (`ops.append`) — same semantics, asserted by tests. The write
+    lands at the PHYSICAL ring position `base % slots` (base itself is
+    absolute), through the kernel's plain version on whatever device the
+    state lives, in place on `state.log_data` (the torch form of the
+    engine's donation); the returned state carries it.
+    """
+    # Local: the step layer imports no op for the engine, which never
+    # runs this composition.
+    from ripplemq_tpu_torch.ops.append import append_rows_active_plain
+
+    new_state, ctl = replica_control(cfg, state, inp, alive, quorum, trim,
+                                     axis=axis)
+    log_data = state.log_data
+    ids = torch.arange(log_data.shape[1], dtype=_I32, device=log_data.device)
+    append_rows_active_plain(log_data, inp.entries, ids,
+                             ctl.out.base % cfg.slots, ctl.do_write)
+    return new_state._replace(log_data=log_data), ctl.out
+
+
 def _vote_core(
     cfg: EngineConfig,
     log_end: torch.Tensor,       # int32 [R, P]

@@ -69,13 +69,13 @@ def test_admission_list_matches_files_on_disk():
     assert len(listed) == len(set(listed))
 
 
-@pytest.mark.parametrize("sub", ["broker", "chaos", "client", "groups",
-                                 "obs", "parallel", "samples", "slo",
-                                 "storage", "stripes"])
+@pytest.mark.parametrize("sub", ["analysis", "broker", "chaos", "client",
+                                 "groups", "obs", "parallel", "samples",
+                                 "slo", "storage", "stripes"])
 def test_import_scan_covers_subpackage(sub):
     """The scan below walks every file of the package, the subpackages
-    slice D2 added (client/, slo/, chaos/, samples/) and those slice E
-    grew (parallel/, stripes/) included."""
+    slice D2 added (client/, slo/, chaos/, samples/), those slice E
+    grew (parallel/, stripes/) and slice G's analysis/ included."""
     scanned = {p.relative_to(REPO / "ripplemq_tpu_torch").parts[0]
                for p in _port_sources() if "ripplemq_tpu_torch" in p.parts}
     assert sub in scanned

@@ -180,6 +180,54 @@ def test_offset_blend_is_ordered_later_duplicate_wins():
     assert out[1, 0].eq(0).all()
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["legacy", "packed"])
+@pytest.mark.parametrize("seed", range(4))
+def test_replica_step_matches_reference(packed, seed):
+    """The all-in-one round (control phase + the plain append at
+    `base % slots`) against the reference's `jax.vmap(replica_step)`:
+    every state leaf, the written log included, and every output."""
+    rng = np.random.default_rng(200 + seed)
+    cfg, rcfg = _cfgs(packed_writes=packed)
+    st = _rand_state(rng, cfg)
+    inp = _rand_input(rng, cfg, extents=seed % 2 == 0)
+    alive = _rand_alive(rng, cfg, per_partition=seed % 2 == 1)
+    quorum = (rng.integers(1, cfg.replicas + 1, size=cfg.partitions)
+              .astype(np.int32) if seed >= 2 else None)
+    trim = (rng.integers(0, 48, size=cfg.partitions).astype(np.int32)
+            if seed % 2 else None)
+    if seed % 2:
+        # A lapped ring: absolute offsets one ring past the physical rows
+        # (trim moves with them), so the write lands at base % slots.
+        for name in ("log_end", "commit"):
+            st[name] = st[name] + np.int32(cfg.slots)
+        trim = trim + np.int32(cfg.slots)
+    maybe = lambda x, f: None if x is None else f(x)  # noqa: E731
+
+    vstep = jax.vmap(functools.partial(ref_step.replica_step, rcfg),
+                     in_axes=(0, None, 0, None, None, None),
+                     axis_name=ref_step.AXIS)
+    jnew, jout = vstep(ref_state.ReplicaState(**_j(st)),
+                       ref_state.StepInput(**_j(inp)),
+                       jnp.arange(cfg.replicas, dtype=jnp.int32),
+                       jnp.asarray(alive), maybe(quorum, jnp.asarray),
+                       maybe(trim, jnp.asarray))
+    pnew, pout = port_step.replica_step(
+        cfg, port_state.ReplicaState(**_t(st)),
+        port_state.StepInput(**_t(inp)), torch.from_numpy(alive),
+        maybe(quorum, torch.from_numpy), maybe(trim, torch.from_numpy))
+
+    for name in jnew._fields:
+        np.testing.assert_array_equal(_np(getattr(pnew, name)),
+                                      np.asarray(getattr(jnew, name)),
+                                      err_msg=name)
+    for name in jout._fields:
+        _assert_replica_invariant_eq(getattr(pout, name),
+                                     getattr(jout, name))
+    # The draw wrote rows: the log changed where a round committed.
+    assert (pnew.log_data.numpy() != st["log_data"]).any()
+    assert 0 < int(pout.committed.sum()) < cfg.partitions
+
+
 @pytest.mark.parametrize("fused", [False, True], ids=["legacy", "fused"])
 @pytest.mark.parametrize("seed", range(4))
 def test_vote_matches_reference(fused, seed):
