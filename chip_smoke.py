@@ -4,16 +4,17 @@
     python3 chip_smoke.py [--seed N] [--dataplane-only | --control-only
                                       | --broker-only | --planes-only
                                       | --spmd-only | --witness-only
-                                      | --gloo-probe]
+                                      | --tools-only | --gloo-probe]
 
 `--dataplane-only` builds the kernels and runs only phase 8,
 `--control-only` only phase 9, `--broker-only` only phase 10,
 `--planes-only` only phase 11 (after the RS kernel's check at the stripe
-ladder's widths), `--spmd-only` only phase 12 and `--witness-only` only
-phase 13, without the result line: loops for measuring the DataPlane,
-the control path, the broker path (`--broker-only` also times the
-consumers' drain with the reference's auto-commit against the port's),
-the planes path, the lockstep path and the witness path. `--gloo-probe`
+ladder's widths), `--spmd-only` only phase 12, `--witness-only` only
+phase 13 and `--tools-only` only phase 14, without the result line:
+loops for measuring the DataPlane, the control path, the broker path
+(`--broker-only` also times the consumers' drain with the reference's
+auto-commit against the port's), the planes path, the lockstep path,
+the witness path and the tools path. `--gloo-probe`
 checks only the spmd binding's gloo collectives on CUDA tensors across
 2 and 6 ranks of the card, their latency, and that a killed peer makes
 a collective raise. Runs only where
@@ -199,11 +200,7 @@ phase that fails raises, and the script exits nonzero with no result.
 13. the witness path: the port's lint (`ripplemq_tpu_torch.analysis`)
    run clean on this host (per-rule counts and runtimes), the static
    lock graph's closure, then the runtime lock witness on the card,
-   reset before and disabled after: (a) the CPU twins' in-process chaos
-   runs (seed 1, full copy; seed 11, the striped schedule of a crash
-   with a disk flip then a stripe-holder kill) with every broker's
-   plane on CUDA, each with no violation, its witnessed orderings
-   acyclic and inside the closure; (b) the broker path's topology at
+   reset before and disabled after, on the broker path's topology at
    full width (1024 partitions x RF 3, slots 4608, B 512, fused +
    packed, 64 MiB erasure-coded segments, the standbys CLI processes)
    with `lock_witness: true`: 16 x 64 awaited single-message produces
@@ -212,21 +209,50 @@ phase that fails raises, and the script exits nonzero with no result.
    append at least once a controller round, the controller's witness
    report acyclic with no ordering outside the closure (its rates are
    taken with the witness on);
-14. times: each kernel's device time alone (the profiler's events by
+14. the tools path: the port's operator tools
+   (`ripplemq_tpu_torch.profiles`) on the card, through their `main`:
+   (a) the chaos soak CLI, every broker's plane on the card: an
+   in-process `--sweep 3 --witness`; seed 1 `--phases 2 --phase-s 0.5
+   --witness` and seed 11's striped schedule (a crash with a disk flip,
+   then a stripe-holder kill) written to a trace file and run with
+   `--replay --witness --postmortems` (the CPU twins' chaos gates, which
+   the witness path ran before; their launches count as the witness
+   path's); a `--replay` of that run's own verdict, whose digest and
+   trace must equal it; and `--backend proc --seed 0 --host-workers 2`
+   as a child process (its brokers `--device cuda`), read from `--out`,
+   started first and read last. Every verdict safe, every witnessed
+   one acyclic and inside the closure, the append kernels launched in
+   every in-process run and the RS kernel in the striped one; (b) the
+   trace viewer's live demo (`--host-workers 2 --striped --messages 5`):
+   at least 5 produce trees, all but the first covering >= 90% of their
+   ack, >= 6 hop kinds with stripe.send and stripe.apply, >= 3 clock
+   domains with a worker's; then `--from-json` on those span records
+   (the same trees) and on the striped soak verdict; (c) the host-edge
+   breakdown (`host_edge.measure`) at `e2e_raw_config`'s full width
+   (the broker path's topology, its 3 brokers in this process), with 1
+   and 2 host workers: every reference key, every timed term > 0, every
+   timed RPC ok; (d) two sealed 64 MiB segments of legacy
+   payload-only-CRC round records (B rows of SB bytes) migrated by
+   `store_migrate.migrate_store`, then `recover_image` onto the card:
+   every record's rows equal on the card, the migration's MB/s;
+15. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
    the stripe encode at the ladder's 16 KiB and top classes;
-15. a JSON line naming each ported kernel (gf_matmul's launches split by
+16. a JSON line naming each ported kernel (gf_matmul's launches split by
    consumer and by path; the append variants' launches on the dataplane
    path as `launches_dataplane`, on the control path as
    `launches_control`, each kernel's on the broker path as
    `launches_broker` and on the planes path as `launches_planes`, and on
    the lockstep path as `launches_spmd`: the legacy append's in the 1x1
-   arm, the packed append's a rank of the lockstep broker; and on the
-   witness path as `launches_witness`), then
+   arm, the packed append's a rank of the lockstep broker; on the
+   witness path as `launches_witness`, its seeds' soak runs included,
+   which run inside the tools path and are also given alone as
+   `launches_witness_seeds`; and on the tools path as `launches_tools`,
+   the seeds' runs left out), then
    the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
@@ -302,6 +328,9 @@ if __name__ != "__mp_main__":
     )
     from ripplemq_tpu_torch.stripes.recovery import rebuild_records
     from ripplemq_tpu_torch.wire.transport import TcpClient, TcpServer
+
+# Torch-free, so outside the guard: BROKER_SHAPE below derives from it.
+from ripplemq_tpu_torch.profiles.host_edge import e2e_raw_config  # noqa: E402
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
@@ -441,14 +470,18 @@ CHAOS_ROUNDS = 8  # appends on one log pair, as a chaos run's rounds are
 
 
 def chaos_engines() -> list:
-    """The engines of `run_chaos`'s clusters at its default topic: the
-    in-process one (the witness path's chaos runs) and the process one
-    (the planes path's), each derived from the config builders."""
+    """The engines of the small in-process and process clusters the
+    paths drive, each derived from the config builder that path calls:
+    `run_chaos`'s clusters at its default topic, in-process (the tools
+    path's soak runs) and process (the planes path's and the tools
+    path's proc soak), and the trace viewer's live demo (the tools
+    path's trace, at `make_cluster_config`'s default topics)."""
     import inspect
 
     from ripplemq_tpu_torch.chaos.cluster import make_cluster_config
     from ripplemq_tpu_torch.chaos.harness import run_chaos
     from ripplemq_tpu_torch.chaos.proc_cluster import make_proc_cluster_config
+    from ripplemq_tpu_torch.profiles import trace_view
 
     kw = inspect.signature(run_chaos).parameters
     topics = (Topic("chaos", kw["partitions"].default,
@@ -458,7 +491,9 @@ def chaos_engines() -> list:
                                  topics=topics).engine),
             ("process chaos engine",
              make_proc_cluster_config([0] * kw["n_brokers"].default,
-                                      topics=topics).engine)]
+                                      topics=topics).engine),
+            ("trace demo engine",
+             trace_view.demo_config(**TOOLS_TRACE_DEMO).engine)]
 
 
 def chaos_append_vs_plain(ops, seed) -> dict:
@@ -2454,35 +2489,34 @@ def control_path(seed, card, workdir) -> dict:
 # ------------------------------------------------ phase 10: the broker path
 
 # bench.py's end-to-end topology (`_run_e2e`, bench.py:1057-1110) with its
-# cluster config (`e2e_raw_config`, bench.py:794-850), unchanged: 3
-# brokers on loopback TCP, topic "bench" of 1024 partitions at RF 3, the
-# controller's engine 1024 x 3 (slots 4608, B 512, SB 128, fused_control
-# and packed_writes, settle_window 8), a data_dir (an erasure-coded
-# SegmentStore at the default 64 MiB segments) on every broker.
+# cluster config, unchanged: the port's one copy of it,
+# `ripplemq_tpu_torch.profiles.host_edge.e2e_raw_config` (bench.py:794-850).
+# 3 brokers on loopback TCP, topic "bench" of 1024 partitions at RF 3,
+# the controller's engine 1024 x 3 (slots 4608, B 512, SB 128,
+# fused_control and packed_writes, settle_window 8), a data_dir (an
+# erasure-coded SegmentStore at the default 64 MiB segments) on every
+# broker.
 BROKER_TOPIC = "bench"
-BROKER_SHAPE = dict(partitions=1024, replicas=3, slots=4608, slot_bytes=128,
-                    max_batch=512, read_batch=1024, max_consumers=64,
-                    max_offset_updates=8, fused_control=True,
-                    packed_writes=True, settle_window=8)
+BROKER_SHAPE = e2e_raw_config([])["engine"]
 
 
 def broker_raw_config(ports) -> dict:
-    """The broker path's cluster config, as the broker CLI loads it."""
-    return {
-        "host_workers": 1,
-        "brokers": [{"id": i, "host": "127.0.0.1", "port": p}
-                    for i, p in enumerate(ports)],
-        "topics": [{"name": BROKER_TOPIC,
-                    "partitions": BROKER_SHAPE["partitions"],
-                    "replication_factor": 3}],
-        "engine": dict(BROKER_SHAPE),
-        "election_timeout_s": 0.5,
-        "metadata_election_timeout_s": 8.0,
-        "membership_poll_s": 0.5,
-        "rpc_timeout_s": 60.0,
-        "rpc_workers": 320,
-        "coalesce_s": 0.03,
-    }
+    """The broker path's cluster config, as the broker CLI loads it:
+    `e2e_raw_config(ports)` (BROKER_SHAPE is its engine, which a CPU
+    rehearsal may shrink)."""
+    raw = e2e_raw_config(ports, partitions=BROKER_SHAPE["partitions"])
+    raw["engine"] = dict(BROKER_SHAPE)
+    return raw
+
+
+def topology_digest() -> str:
+    """The sha256 of the broker path's config at fixed ports: the planes
+    and lockstep paths build on it, so one digest shows them unchanged."""
+    ports = [9000, 9001, 9002]
+    raw = broker_raw_config(ports)
+    if raw != e2e_raw_config(ports):
+        raise AssertionError("broker_raw_config differs from e2e_raw_config")
+    return hashlib.sha256(json.dumps(raw, sort_keys=True).encode()).hexdigest()
 
 
 BROKER_LAT = (16, 250)        # awaited single-message producers x messages
@@ -4065,18 +4099,6 @@ def spmd_path(seed, card, workdir) -> dict:
 
 # ------------------------------------------------ the witness path
 
-# The in-process chaos runs the CPU twins gate on
-# (tests/test_torch_chaos.py), here with every broker's plane on the card.
-WITNESS_CHAOS = (
-    ("seed 1, full copy", dict(seed=1, phases=2, phase_s=0.5,
-                               converge_timeout_s=90.0)),
-    ("seed 11, striped", dict(
-        seed=11, n_brokers=4, phases=2, phase_s=0.5,
-        replication_mode="striped", converge_timeout_s=90.0,
-        schedule=[[{"op": "crash", "broker": 1},
-                   {"op": "disk_flip", "broker": 1, "salt": 11}],
-                  [{"op": "stripe_kill", "holder": 0}]])),
-)
 WITNESS_LAT = (16, 64)        # awaited single-message producers x messages
 WITNESS_BATCHES = 96          # bulk batches per producer (8 x 96 x 512)
 
@@ -4116,13 +4138,12 @@ def check_witness(rep: dict, what: str) -> None:
 def witness_path(seed, card, workdir) -> dict:
     """Phase 13 (see the module docstring): the runtime lock witness on
     the card, held to acyclicity and to containment in the port's static
-    lock graph's closure: (a) the in-process chaos runs of the CPU twins
-    with every broker's plane on the card, (b) the broker path's
-    topology at full width with `lock_witness: true` on the controller.
+    lock graph's closure, on the broker path's topology at full width
+    with `lock_witness: true` on the controller (the in-process chaos
+    runs it held before run in the tools path, through the soak CLI).
     The witness is reset before and disabled after, so no other path is
     timed with it on."""
     from ripplemq_tpu_torch.analysis.lock_graph import default_closure
-    from ripplemq_tpu_torch.chaos.harness import run_chaos
     from ripplemq_tpu_torch.chaos.proc_cluster import free_ports
     from ripplemq_tpu_torch.obs import lockwitness
 
@@ -4135,37 +4156,7 @@ def witness_path(seed, card, workdir) -> dict:
     launches = collections.Counter()
     lockwitness.reset()
     try:
-        # (a) the in-process chaos runs, every broker's plane on the card.
-        out["chaos"] = {}
-        for label, kw in WITNESS_CHAOS:
-            t0 = time.perf_counter()
-            append_ops.reset_launches()
-            rs_ops.reset_launches()
-            verdict = run_chaos(device=DEV, backend="inproc",
-                                lock_witness=True, **kw)
-            ran = {**append_ops.LAUNCHES, **rs_ops.LAUNCHES}
-            launches.update(ran)
-            w = verdict["lock_witness"]
-            if verdict["violations"]:
-                raise AssertionError(f"witness path: chaos {label}: "
-                                     f"{verdict['violations']}")
-            check_witness(w, f"witness path: chaos {label}")
-            if "DataPlane._lock" not in w["locks"] or not (
-                    ran["append_active"] + ran["append_active_packed"]):
-                raise AssertionError(f"witness path: chaos {label}: locks "
-                                     f"{w['locks']}, append launches {ran}")
-            out["chaos"][label] = dict(
-                locks=len(w["locks"]), edges=len(w["edges"]), launches=ran,
-                produce_ok=verdict["counts"]["produce_ok"])
-            print(f"witness path: chaos {label} (in-process, planes on "
-                  f"{DEV}): no violation, {verdict['counts']['produce_ok']} "
-                  f"produces acked; witnessed {len(w['locks'])} locks, "
-                  f"{len(w['edges'])} orderings "
-                  f"{[tuple(e[:2]) for e in w['edges']]}, acyclic, none "
-                  f"outside the closure; kernel launches {ran}; "
-                  f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
-        # (b) the broker path's topology, witness on in the controller.
-        lockwitness.reset()
+        # The broker path's topology, witness on in the controller.
         root = os.path.join(workdir, "witness-path")
         raw = broker_raw_config(free_ports(3))
         raw["lock_witness"] = True
@@ -4229,6 +4220,353 @@ def witness_path(seed, card, workdir) -> dict:
     return out
 
 
+# ------------------------------------------------ the tools path
+
+# (a) the soak CLI on the card. The seeds the witness path's chaos runs
+# used (the CPU twins' in-process gates, tests/test_torch_chaos.py) run
+# here through the CLI: seed 1 on full copies, and seed 11's striped
+# schedule (a crash with a disk flip, then a stripe-holder kill) as a
+# replayed trace file.
+TOOLS_SWEEP = ["--sweep", "3", "--witness"]
+TOOLS_SEED1 = ["--seed", "1", "--phases", "2", "--phase-s", "0.5",
+               "--witness"]
+TOOLS_STRIPED = ["--seed", "11", "--brokers", "4", "--phases", "2",
+                 "--phase-s", "0.5", "--replication", "striped",
+                 "--witness", "--postmortems"]
+TOOLS_STRIPED_TRACE = [
+    {"phase": 0, "op": "crash", "broker": 1},
+    {"phase": 0, "op": "disk_flip", "broker": 1, "salt": 11},
+    {"phase": 1, "op": "stripe_kill", "holder": 0}]
+TOOLS_PROC = ["--backend", "proc", "--seed", "0", "--host-workers", "2"]
+TOOLS_PROC_S = 600            # bound of the proc soak's process
+# (b) the trace viewer's live demo, and the reference's bar for it
+# (the verify recipe's "Causal tracing" acceptance drive).
+TOOLS_TRACE = ["--host-workers", "2", "--striped", "--messages", "5"]
+TOOLS_TRACE_DEMO = dict(host_workers=2, striped=True)  # TOOLS_TRACE's cluster
+TOOLS_TRACE_COVERAGE = 0.90
+TOOLS_TRACE_HOPS = 6
+TOOLS_TRACE_PROCS = 3
+# (d) two sealed 64 MiB segments of legacy (payload-only CRC) frames,
+# round records of the broker topology's engine (B rows of SB bytes).
+TOOLS_MIGRATE_SEGMENTS = 2
+
+
+def run_tool(main, argv) -> tuple:
+    """A tool's `main(argv)` in this process: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def check_soak(v: dict, what: str, witnessed: bool) -> None:
+    """A soak verdict held to the CLI's gate (safe) and, when witnessed,
+    to the witness path's: acyclic, inside the static closure."""
+    if not v["safe"] or v["violations"]:
+        raise AssertionError(f"{what}: unsafe: {v['violations']}")
+    if witnessed:
+        w = v["lock_witness"]
+        check_witness(w, what)
+        if "DataPlane._lock" not in w["locks"]:
+            raise AssertionError(f"{what}: witnessed locks {w['locks']}")
+
+
+def soak_line(v: dict) -> str:
+    w = v.get("lock_witness")
+    wit = (f"; witnessed {len(w['locks'])} locks, {len(w['edges'])} "
+           f"orderings, acyclic, none outside the closure" if w else "")
+    return (f"seed {v['seed']} {v['backend']} {v['replication']}: safe, "
+            f"converged {v['converged']}, {v['counts']['produce_ok']} "
+            f"produces acked, digest {v['schedule_digest'][:16]}{wit}, "
+            f"{v['elapsed_s']:.1f} s")
+
+
+def tools_soak(card, workdir) -> tuple:
+    """(a): the soak CLI's runs, its proc run in a child process started
+    first and read back last. Returns the kernel launches of the tools'
+    own runs and of the witness seeds' runs, and the striped verdict's
+    path."""
+    from ripplemq_tpu_torch.profiles import chaos_soak
+
+    launches = collections.Counter()
+    witness_launches = collections.Counter()
+    proc_out = os.path.join(workdir, "soak-proc.json")
+    proc_log = open(os.path.join(workdir, "soak-proc.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ripplemq_tpu_torch.profiles.chaos_soak",
+         *TOOLS_PROC, "--device", DEV, "--out", proc_out],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=proc_log)
+    try:
+        runs = []
+
+        def soak(label, argv, witness_seed=False):
+            """One in-process soak; its verdict read from `--out`."""
+            t0 = time.perf_counter()
+            path = os.path.join(workdir, f"soak-{len(runs)}.json")
+            append_ops.reset_launches()
+            rs_ops.reset_launches()
+            rc, _ = run_tool(chaos_soak.main, [*argv, "--out", path])
+            ran = {**append_ops.LAUNCHES, **rs_ops.LAUNCHES}
+            with open(path) as f:
+                doc = json.load(f)
+            doc["path"] = path
+            if rc != 0:
+                raise AssertionError(f"tools path: soak {label}: exit {rc}")
+            if not ran["append_active"] + ran["append_active_packed"]:
+                raise AssertionError(f"tools path: soak {label}: no append "
+                                     f"launch {ran}")
+            (witness_launches if witness_seed else launches).update(ran)
+            runs.append(label)
+            print(f"tools path: soak {label} (chaos_soak {' '.join(argv)}; "
+                  f"planes on {DEV}): exit {rc}, kernel launches {ran}, "
+                  f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+            return doc
+
+        sweep = soak("sweep", [*TOOLS_SWEEP, "--device", DEV])
+        if sweep["sweep"] != 3 or not sweep["safe"] or sweep["unsafe_seeds"]:
+            raise AssertionError(f"tools path: sweep {sweep['unsafe_seeds']}")
+        for v in sweep["runs"]:
+            check_soak(v, f"tools path: sweep seed {v['seed']}", True)
+            print(f"tools path:   {soak_line(v)}", flush=True)
+        v1 = soak("seed 1", [*TOOLS_SEED1, "--device", DEV], True)
+        check_soak(v1, "tools path: seed 1", True)
+        print(f"tools path:   {soak_line(v1)}", flush=True)
+        trace_path = os.path.join(workdir, "striped-trace.json")
+        with open(trace_path, "w") as f:
+            json.dump(TOOLS_STRIPED_TRACE, f)
+        v11 = soak("seed 11 striped", [*TOOLS_STRIPED, "--replay", trace_path,
+                                       "--device", DEV], True)
+        check_soak(v11, "tools path: seed 11 striped", True)
+        if not witness_launches["gf_matmul"]:
+            raise AssertionError("tools path: the striped soak launched no "
+                                 "RS kernel")
+        print(f"tools path:   {soak_line(v11)}", flush=True)
+        again = soak("seed 11 replayed", [*TOOLS_STRIPED, "--replay",
+                                          v11["path"], "--device", DEV])
+        check_soak(again, "tools path: seed 11 replayed", True)
+        if again["schedule_digest"] != v11["schedule_digest"] or \
+                again["trace"] != v11["trace"]:
+            raise AssertionError(f"tools path: the replay's digest "
+                                 f"{again['schedule_digest']} differs from "
+                                 f"the recorded {v11['schedule_digest']}")
+        print(f"tools path:   {soak_line(again)}: the recorded verdict's "
+              f"digest reproduced", flush=True)
+        rc = proc.wait(timeout=TOOLS_PROC_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc_log.close()
+    if rc != 0 or not os.path.exists(proc_out):
+        with open(proc_log.name) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"tools path: proc soak exit {rc}: {tail}")
+    with open(proc_out) as f:
+        vp = json.load(f)
+    check_soak(vp, "tools path: proc soak", False)
+    print(f"tools path: soak proc (python -m "
+          f"ripplemq_tpu_torch.profiles.chaos_soak {' '.join(TOOLS_PROC)}; "
+          f"--device {DEV}, broker processes on {DEV}, read from --out): exit {rc}; "
+          f"{soak_line(vp)} [{card}]", flush=True)
+    return launches, witness_launches, v11["path"]
+
+
+def tools_trace(card, workdir, verdict_path) -> dict:
+    """(b): the trace viewer's live demo on the card, held to the
+    reference's bar, then its offline mode on disk. Returns the demo's
+    kernel launches."""
+    from ripplemq_tpu_torch.obs.assemble import assemble
+    from ripplemq_tpu_torch.profiles import trace_view
+
+    t0 = time.perf_counter()
+    append_ops.reset_launches()
+    rs_ops.reset_launches()
+    records = trace_view.live_spans(5, device=DEV, **TOOLS_TRACE_DEMO)
+    ran = {**append_ops.LAUNCHES, **rs_ops.LAUNCHES}
+    trees = assemble(records)
+    produce = [t for t in trees if t["root_kind"] == "client.produce"]
+    if len(produce) < 5:
+        raise AssertionError(f"tools path: trace: {len(produce)} produce "
+                             f"trees of {len(trees)}")
+    steady = produce[1:]
+    low = [t["coverage"] for t in steady
+           if (t["coverage"] or 0) < TOOLS_TRACE_COVERAGE]
+    kinds = {k for t in produce for k in t["hops"]}
+    procs = {p for t in produce for p in t["procs"]}
+    if low or len(kinds) < TOOLS_TRACE_HOPS \
+            or not {"stripe.send", "stripe.apply"} <= kinds \
+            or len(procs) < TOOLS_TRACE_PROCS \
+            or not any(p.startswith("worker") for p in procs):
+        raise AssertionError(f"tools path: trace: coverage below "
+                             f"{TOOLS_TRACE_COVERAGE} {low}, hops {kinds}, "
+                             f"procs {procs}")
+    if not ran["append_active_packed"] + ran["append_active"] \
+            or not ran["gf_matmul"]:
+        raise AssertionError(f"tools path: trace: kernel launches {ran}")
+    cov = [round(t["coverage"], 4) for t in produce]
+    print(f"tools path: trace (trace_view {' '.join(TOOLS_TRACE)}, live on "
+          f"{DEV}): {len(records)} span records -> {len(trees)} trees, "
+          f"{len(produce)} produce trees, coverage {cov} (the first pays "
+          f"the warm-up), {len(kinds)} hop kinds {sorted(kinds)}, "
+          f"{len(procs)} clock domains {sorted(procs)}; kernel launches "
+          f"{ran}; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    # Offline: the live records as a bare list on disk render the same
+    # trees; the striped soak verdict renders its postmortem rings.
+    spans_path = os.path.join(workdir, "trace-spans.json")
+    with open(spans_path, "w") as f:
+        json.dump(records, f)
+    rc, text = run_tool(trace_view.main, ["--from-json", spans_path])
+    head = text.splitlines()[0]
+    if rc != 0 or head != f"{len(records)} span records -> " \
+            f"{len(trees)} trace(s)" or text.count("\ntrace 0x") != len(trees):
+        raise AssertionError(f"tools path: trace --from-json: exit {rc}, "
+                             f"{head!r}")
+    rc, text = run_tool(trace_view.main, ["--from-json", verdict_path])
+    vhead = text.splitlines()[0]
+    if rc != 0:
+        raise AssertionError(f"tools path: trace --from-json verdict: {rc}")
+    print(f"tools path: trace --from-json: the live records -> {head!r}; "
+          f"the striped soak verdict -> {vhead!r} (chaos clusters run with "
+          f"trace sampling off, in both packages)", flush=True)
+    return ran
+
+
+def tools_host_edge(card, workdir) -> collections.Counter:
+    """(c): the host-edge breakdown at the e2e topology, full width, with
+    1 and 2 host workers. Returns both runs' kernel launches."""
+    from ripplemq_tpu_torch.chaos.proc_cluster import free_ports
+    from ripplemq_tpu_torch.profiles import host_edge
+
+    launches = collections.Counter()
+    for hw in (1, 2):
+        t0 = time.perf_counter()
+        raw = host_edge.e2e_raw_config(free_ports(3), host_workers=hw)
+        append_ops.reset_launches()
+        rs_ops.reset_launches()
+        terms = host_edge.measure(raw, DEV, os.path.join(workdir, f"edge{hw}"))
+        ran = {**append_ops.LAUNCHES, **rs_ops.LAUNCHES}
+        timed = {k: v for k, v in terms.items() if k.endswith("_ms")}
+        want = {"worker_submit256_ms"} if hw > 1 else set()
+        if not all(v > 0 for v in timed.values()) \
+                or terms["produce256_wire_bytes"] <= 0 \
+                or not want <= set(timed) \
+                or not ran["append_active_packed"] or ran["append_active"]:
+            raise AssertionError(f"tools path: host edge {hw}: {terms}, "
+                                 f"launches {ran}")
+        launches.update(ran)
+        print(f"tools path: host edge (host_edge.measure, e2e_raw_config: "
+              f"1024 partitions x RF 3, engine 1024 x 3, slots 4608, B 512, "
+              f"SB 128, fused + packed, 64 MiB erasure-coded segments; "
+              f"host_workers {hw}; 3 brokers in this process on loopback "
+              f"TCP, the controller's plane on {DEV}): {json.dumps(terms)}; "
+              f"kernel launches {ran}; {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
+    return launches
+
+
+def legacy_frame(rec_type, slot, base, payload) -> bytes:
+    """A frame as the payload-only-CRC writer framed it."""
+    hdr = struct.pack("<IBIII", 0x474C5152, rec_type, slot, base,
+                      len(payload))
+    return hdr + struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF) + payload
+
+
+def tools_migrate(seed, card, workdir) -> None:
+    """(d): two sealed 64 MiB segments of legacy frames, migrated by the
+    port's tool, then recovered onto the card and read back exactly."""
+    from ripplemq_tpu_torch.core.encode import pack_payload_rows, stamp_term
+    from ripplemq_tpu_torch.profiles.store_migrate import migrate_store
+    from ripplemq_tpu_torch.storage.segment import scan_store
+
+    cfg = EngineConfig(**BROKER_SHAPE)
+    B, SB = cfg.max_batch, cfg.slot_bytes
+    per_segment = SEG_BYTES // (B * SB)
+    n = TOOLS_MIGRATE_SEGMENTS * per_segment
+    rng = np.random.default_rng(seed)
+    d = os.path.join(workdir, "migrate", "segments")
+    os.makedirs(d)
+    records = []
+    for i in range(n):
+        p, rnd = i % cfg.partitions, i // cfg.partitions
+        lens = rng.integers(1, cfg.payload_bytes + 1, B)
+        blob = rng.integers(0, 256, int(lens.sum()), dtype=np.uint8).tobytes()
+        cuts = np.concatenate([[0], np.cumsum(lens)])
+        rows = pack_payload_rows(
+            cfg, [blob[cuts[j]:cuts[j + 1]] for j in range(B)])
+        stamp_term(rows, 1)
+        records.append((REC_APPEND, p, rnd * B, rows.tobytes()))
+    for s in range(TOOLS_MIGRATE_SEGMENTS):
+        with open(os.path.join(d, f"segment-{s:08d}.log"), "wb") as f:
+            for rec in records[s * per_segment:(s + 1) * per_segment]:
+                f.write(legacy_frame(*rec))
+    size = sum(os.path.getsize(os.path.join(d, x)) for x in os.listdir(d))
+    t0 = time.perf_counter()
+    stats = migrate_store(d)
+    mig_s = time.perf_counter() - t0
+    if not stats["migrated"] or stats["legacy_frames"] != n \
+            or stats["modern_frames"] != 0:
+        raise AssertionError(f"tools path: migration {stats}")
+    if list(scan_store(d, use_native=False)) != records:
+        raise AssertionError("tools path: the migrated store's records "
+                             "differ from those written")
+    t1 = time.perf_counter()
+    image = dataplane.recover_image(cfg, d, device=DEV)
+    log = image.log_data.to(DEV)
+    want = torch.from_numpy(np.stack([np.frombuffer(r[3], np.uint8)
+                                      for r in records])).to(DEV)
+    want = want.view(n, B, SB)
+    ps = torch.tensor([r[1] for r in records], device=DEV)
+    bases = torch.tensor([r[2] % cfg.slots for r in records], device=DEV)
+    rows = bases[:, None] + torch.arange(B, device=DEV)[None, :]
+    got = log[ps[:, None], rows]
+    want_end = np.zeros(cfg.partitions, np.int64)
+    for _, p, base, _ in records:
+        want_end[p] = max(want_end[p], base + B)
+    ends = image.log_end.to(DEV)
+    want_end = torch.from_numpy(want_end).to(device=DEV, dtype=ends.dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(ends, want_end):
+        raise AssertionError("tools path: a migrated record read back "
+                             "wrong on the card")
+    rec_s = time.perf_counter() - t1
+    print(f"tools path: migrate (store_migrate.migrate_store): "
+          f"{TOOLS_MIGRATE_SEGMENTS} sealed segments of {n} legacy round "
+          f"records ({B} rows x {SB} B each, {size} bytes) rewritten to "
+          f"header-covered frames in {mig_s:.3f} s = "
+          f"{size / mig_s / 1e6:.1f} MB/s (verify_store gate and backup "
+          f"{os.path.basename(stats['backup'])} included); recover_image "
+          f"onto {DEV}: every record's {B} rows equal on the card, log ends "
+          f"equal, {rec_s:.1f} s [{card}]", flush=True)
+
+
+def tools_path(seed, card, workdir) -> dict:
+    """Phase 14 (see the module docstring): the port's four operator
+    tools on the card, through the entry points an operator calls."""
+    from ripplemq_tpu_torch.obs import lockwitness
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "tools-path")
+    os.makedirs(root)
+    try:
+        launches, witness_launches, verdict = tools_soak(card, root)
+    finally:
+        lockwitness.disable()
+        lockwitness.reset()
+    launches.update(tools_trace(card, root, verdict))
+    launches.update(tools_host_edge(card, root))
+    tools_migrate(seed, card, root)
+    print(f"tools path: done in {time.perf_counter() - t_phase:.1f} s; "
+          f"kernel launches {dict(launches)} (and "
+          f"{dict(witness_launches)} of the witness seeds) [{card}]",
+          flush=True)
+    return dict(launches=dict(launches),
+                witness_launches=dict(witness_launches))
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -4268,6 +4606,9 @@ def main() -> int:
     only.add_argument("--witness-only", action="store_true",
                       help="build the kernels and run only the witness "
                            "path (no result line)")
+    only.add_argument("--tools-only", action="store_true",
+                      help="build the kernels and run only the tools path "
+                           "(no result line)")
     only.add_argument("--gloo-probe", action="store_true",
                       help="run only the gloo probe: the spmd binding's "
                            "collectives on CUDA tensors across 2 and 6 "
@@ -4294,6 +4635,8 @@ def main() -> int:
         return 0
 
     build_kernels()
+    print(f"topology: broker_raw_config = e2e_raw_config, sha256 "
+          f"{topology_digest()} at ports 9000-9002", flush=True)
     if args.dataplane_only:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
@@ -4321,9 +4664,13 @@ def main() -> int:
             spmd_path(args.seed, card, workdir)
         return 0
     if args.witness_only:
-        chaos_append_vs_plain(append_ops, args.seed)
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
             witness_path(args.seed, card, workdir)
+        return 0
+    if args.tools_only:
+        chaos_append_vs_plain(append_ops, args.seed)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            tools_path(args.seed, card, workdir)
         return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
@@ -4348,6 +4695,7 @@ def main() -> int:
         planes = planes_path(args.seed, card, workdir)
         spmd = spmd_path(args.seed, card, workdir)
         witness = witness_path(args.seed, card, workdir)
+        tools = tools_path(args.seed, card, workdir)
     launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
                    for p, r in dp_runs.items()}
     launches_ctrl = ctrl["launches_control"]
@@ -4362,6 +4710,13 @@ def main() -> int:
         "append_active_packed": spmd["broker"]["per_rank"]}
     for name, err in spmd["errs"].items():
         errs[name] = max(errs[name], err)
+    # The witness seeds' chaos runs moved into the tools path, as soak
+    # CLI runs; their launches still count as the witness path's, and
+    # `launches_witness_seeds` names that share (`--witness-only` runs
+    # without it).
+    seeds = tools["witness_launches"]
+    launches_witness = collections.Counter(witness["launches"])
+    launches_witness.update(seeds)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
                     launches=launches[name],
@@ -4370,7 +4725,9 @@ def main() -> int:
                     launches_broker=launches_broker[name],
                     launches_planes=launches_planes[name],
                     launches_spmd=launches_spmd[name],
-                    launches_witness=witness["launches"].get(name, 0),
+                    launches_witness=launches_witness[name],
+                    launches_witness_seeds=seeds.get(name, 0),
+                    launches_tools=tools["launches"].get(name, 0),
                     max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],
@@ -4389,7 +4746,9 @@ def main() -> int:
         launches_by_path=by_path,
         launches_broker=broker["rs_broker"]["gf_matmul"],
         launches_planes=planes["rs_planes"]["gf_matmul"],
-        launches_witness=witness["launches"].get("gf_matmul", 0),
+        launches_witness=launches_witness["gf_matmul"],
+        launches_witness_seeds=seeds.get("gf_matmul", 0),
+        launches_tools=tools["launches"].get("gf_matmul", 0),
         max_abs_err=errs["gf_matmul"], ms=enc["ms"],
         wrapper_ms=enc["wrapper_ms"], plain_ms=enc["plain_ms"],
         bound_ms=enc["bound_ms"], bound_by="bytes", library_ms=None,

@@ -40,7 +40,11 @@ FAST_MODULES = (
     "test_torch_chain_settle",
     "test_torch_chaos",            # ~65 s: 3-seed smoke, striped, lockstep
     "test_torch_client",
+    "test_torch_cold_restart",
+    "test_torch_concurrency_triage",
+    "test_torch_control_fusion",
     "test_torch_controller_failover",
+    "test_torch_core_step",
     "test_torch_dataplane",
     "test_torch_dataplane_parity",
     "test_torch_degradation",
@@ -54,20 +58,27 @@ FAST_MODULES = (
     "test_torch_hostplane_chaos",  # ~15 s: one seeded run + prefix parity
     "test_torch_hostraft",
     "test_torch_idempotence",
+    "test_torch_linearizable_reads",
     "test_torch_lint",             # ~16 s: fixtures + 3 whole-tree lint runs
     "test_torch_lint_parity",
     "test_torch_lockstep",
     "test_torch_lockwitness",
+    "test_torch_log_matching",
     "test_torch_manager",
     "test_torch_marker_audit",
     "test_torch_metadata",
+    "test_torch_model_check",
     "test_torch_multichip_smoke",
     "test_torch_obs",
     "test_torch_observability",
+    "test_torch_packaging",
+    "test_torch_pid_expiry",
     "test_torch_planes_parity",
     "test_torch_port_hygiene",     # ~20 s: import scan of every port file
     "test_torch_proc_chaos",       # ~35 s: real-subprocess chaos smoke
     "test_torch_process_cluster",
+    "test_torch_profiles",         # ~60 s: soak runs of both packages
+    "test_torch_read_batching",
     "test_torch_read_cache",
     "test_torch_repl_pipeline",
     "test_torch_replication",
@@ -76,9 +87,11 @@ FAST_MODULES = (
     "test_torch_rs",               # ~18 s: GF(2^8) parity at segment widths
     "test_torch_server_parity",
     "test_torch_settled_gap",
+    "test_torch_shard_distribution",
     "test_torch_shmring",
     "test_torch_slo",
     "test_torch_slo_chaos",
+    "test_torch_soak",
     "test_torch_spans",
     "test_torch_split",
     "test_torch_split_chaos",      # ~40 s: elastic chaos smokes
@@ -86,6 +99,8 @@ FAST_MODULES = (
     "test_torch_spmd_parity",
     "test_torch_step",
     "test_torch_storage",
+    "test_torch_store_migrate",
+    "test_torch_stride_rule",
     "test_torch_stripes",
     "test_torch_stripes_cluster",
     "test_torch_term_skew",
@@ -96,8 +111,13 @@ FAST_MODULES = (
 # audit accepts them through their `slow` mark, so they stay out of the
 # allowlist (a module both allowlisted and slow-marked is refused).
 PINNED_SLOW = (
+    "test_torch_chaos_soak",
     "test_torch_lockstep_drill",
     "test_torch_multihost",
+    "test_torch_obs_soak",
+    "test_torch_proc_chaos_soak",
+    "test_torch_soak_gc",
+    "test_torch_soak_random",
 )
 
 

@@ -11,7 +11,7 @@ broker crashes (controller included), isolation, symmetric/one-way
 partitions, drops, delays, and duplication — but the run shape is kept
 small (3 brokers, 2 partitions, ~0.5 s faulted windows) so the whole
 module fits the tier-1 budget; the open-ended randomized soak lives in
-test_chaos_soak.py (slow).
+test_torch_chaos_soak.py (slow).
 
 Twin of `tests/test_chaos.py` on the PyTorch port (CPU brokers).
 """

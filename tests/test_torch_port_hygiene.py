@@ -70,12 +70,13 @@ def test_admission_list_matches_files_on_disk():
 
 
 @pytest.mark.parametrize("sub", ["analysis", "broker", "chaos", "client",
-                                 "groups", "obs", "parallel", "samples",
-                                 "slo", "storage", "stripes"])
+                                 "groups", "obs", "parallel", "profiles",
+                                 "samples", "slo", "storage", "stripes"])
 def test_import_scan_covers_subpackage(sub):
     """The scan below walks every file of the package, the subpackages
     slice D2 added (client/, slo/, chaos/, samples/), those slice E
-    grew (parallel/, stripes/) and slice G's analysis/ included."""
+    grew (parallel/, stripes/), slice G's analysis/ and slice H's
+    profiles/ included."""
     scanned = {p.relative_to(REPO / "ripplemq_tpu_torch").parts[0]
                for p in _port_sources() if "ripplemq_tpu_torch" in p.parts}
     assert sub in scanned

@@ -5,8 +5,8 @@ subprocesses over TCP with on-disk stores and drives seeded
 SIGKILL/restart + disk-fault schedules through the same end-to-end
 safety checker as the in-proc chaos plane — the deployment shape,
 attacked deterministically. The open-ended randomized soak (and the
-correlated full-cluster kill drill) live in test_proc_chaos_soak.py
-(slow).
+correlated full-cluster kill drill) live in
+test_torch_proc_chaos_soak.py (slow).
 
 Also here, cheap and fast: proc-backend schedule purity, the
 disk-ops-only-on-crashed-brokers rule, and the `durability=strict`
