@@ -4,17 +4,20 @@
     python3 chip_smoke.py [--seed N] [--dataplane-only | --control-only
                                       | --broker-only | --planes-only
                                       | --spmd-only | --witness-only
-                                      | --tools-only | --gloo-probe]
+                                      | --tools-only | --bench-only
+                                      | --gloo-probe]
 
 `--dataplane-only` builds the kernels and runs only phase 8,
 `--control-only` only phase 9, `--broker-only` only phase 10,
 `--planes-only` only phase 11 (after the RS kernel's check at the stripe
 ladder's widths), `--spmd-only` only phase 12, `--witness-only` only
-phase 13 and `--tools-only` only phase 14, without the result line:
+phase 13, `--tools-only` only phase 14 and `--bench-only` only phase
+15 (after the append kernel's check at the bench's shipped and baseline
+engines), without the result line:
 loops for measuring the DataPlane, the control path, the broker path
 (`--broker-only` also times the consumers' drain with the reference's
 auto-commit against the port's), the planes path, the lockstep path,
-the witness path and the tools path. `--gloo-probe`
+the witness path, the tools path and the bench path. `--gloo-probe`
 checks only the spmd binding's gloo collectives on CUDA tensors across
 2 and 6 ranks of the card, their latency, and that a killed peer makes
 a collective raise. Runs only where
@@ -41,7 +44,10 @@ phase that fails raises, and the script exits nonzero with no result.
    configurations that reach the
    kernel's register path (SB = 25; logs and entries at 1, 3 and 8-byte
    offsets; bases from -B) and its bulk path with SB % 16 != 0
-   (SB = 24); then the GF(2^8) kernel against its plain version
+   (SB = 24); then the small engines at A = P, 8 appends on one log
+   pair each: the chaos clusters', the bench's shipped shape (8 x 3,
+   slots 4096, SB 256, B 32) and its baseline (1 x 5, slots 2048, B 8);
+   then the GF(2^8) kernel against its plain version
    (torch.equal) at a 64 MiB segment's shard length with the encode
    matrix and all 10 reconstruct inverses, every pair of input and output
    row offsets in {0, 1, 7, 15} bytes at widths 1, 15, 16, 17, 33, 4095,
@@ -136,10 +142,11 @@ phase that fails raises, and the script exits nonzero with no result.
    standbys `python -m ripplemq_tpu_torch.broker --device cuda`
    processes started through the port's `ProcCluster`; the port's
    `ProducerClient` and `ConsumerClient` in a child process (its own
-   interpreter). Traffic: 16 x 250 awaited single-message produces
-   (appends/s, ack p50/p99/p999); a windowed bulk backlog of 8 producers
-   x window 16 x batches of 512, enough to seal at least two 64 MiB
-   segments; 16 consumers with auto-commit reading every partition from
+   interpreter). Traffic (depth cut since the bench path joined the
+   run): 16 x 64 awaited single-message produces (appends/s, ack
+   p50/p99/p999); a windowed bulk backlog of 8 producers x window 16 x
+   batches of 512, enough to seal at least one 64 MiB segment; 16
+   consumers with auto-commit reading every partition from
    0, every acked message once, byte-exact, at its acked offset, and the
    committed offsets read back equal; the controller's stage means. Then
    the controller stopped: a standby promotes and boots its plane on the
@@ -235,14 +242,36 @@ phase that fails raises, and the script exits nonzero with no result.
    payload-only-CRC round records (B rows of SB bytes) migrated by
    `store_migrate.migrate_store`, then `recover_image` onto the card:
    every record's rows equal on the card, the migration's MB/s;
-15. times: each kernel's device time alone (the profiler's events by
+15. the bench path: the port's bench (`ripplemq_tpu_torch.bench`), its
+   ported phases through `bench._collect` on the card at the bench's
+   widths and the reference's CPU-backend depths (48 launches x 2
+   windows, A/B 32 launches, baseline 500, e2e 4 s x 1 phase): the
+   sustained engine rate at the headline shape (1024 partitions x 5
+   replicas, slots 12352, B 256, chain 8: an 8.26 GB ring, wrapping
+   behind staged trims, its tail read back), the burst window, the
+   shipped 8 x 3 shape, the one-partition baseline, ack latency, the
+   round RTT, the operating curve and consume through `DataPlane` at
+   1024 x 5, B 32, the fused/packed A/B (eight headline engines in
+   turn), the codec, the stripe encode (the RS kernel), and the e2e
+   topology (the controller's BrokerServer on the card at 1024 x RF 3,
+   B 512, two standby processes, the clients in two torch-free
+   processes); each phase's kernel launches (counts zeroed just before
+   it, read just after), wall time and peak device memory; gates: every
+   HEADLINE_GATES figure > 0, the artifact's keys `bench.RESULT_KEYS`,
+   both readbacks verified and consume count-exact, the card's name in
+   `card`, the legacy append launched in the engine phases, the packed
+   one in the A/B and the e2e phase, the RS kernel in the stripe encode;
+   the run's operating curve turned into a rails prior and loaded back
+   through the port's `SloController`; then the sustained method's host
+   syncs: one headline window under `set_sync_debug_mode("warn")`;
+16. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
    chained round, the plain versions', `index_put_`'s and a `copy_` of
    the append's byte count, peak device memory, `encode_segment`'s steps
    for one 64 MiB segment and `encode_group`'s rate at the bench's shape;
    the stripe encode at the ladder's 16 KiB and top classes;
-16. a JSON line naming each ported kernel (gf_matmul's launches split by
+17. a JSON line naming each ported kernel (gf_matmul's launches split by
    consumer and by path; the append variants' launches on the dataplane
    path as `launches_dataplane`, on the control path as
    `launches_control`, each kernel's on the broker path as
@@ -251,8 +280,9 @@ phase that fails raises, and the script exits nonzero with no result.
    arm, the packed append's a rank of the lockstep broker; on the
    witness path as `launches_witness`, its seeds' soak runs included,
    which run inside the tools path and are also given alone as
-   `launches_witness_seeds`; and on the tools path as `launches_tools`,
-   the seeds' runs left out), then
+   `launches_witness_seeds`; on the tools path as `launches_tools`,
+   the seeds' runs left out; and on the bench path as
+   `launches_bench`), then
    the card line again, then the result line
    `{"ok": true, "device": {...}}`.
 """
@@ -330,7 +360,11 @@ if __name__ != "__mp_main__":
     from ripplemq_tpu_torch.wire.transport import TcpClient, TcpServer
 
 # Torch-free, so outside the guard: BROKER_SHAPE below derives from it.
-from ripplemq_tpu_torch.profiles.host_edge import e2e_raw_config  # noqa: E402
+from ripplemq_tpu_torch.bench import (  # noqa: E402
+    BASE_SHAPE,
+    SHIPPED_SHAPE,
+    e2e_raw_config,
+)
 
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
@@ -496,14 +530,23 @@ def chaos_engines() -> list:
              trace_view.demo_config(**TOOLS_TRACE_DEMO).engine)]
 
 
-def chaos_append_vs_plain(ops, seed) -> dict:
-    """Both append variants against the plain version at the chaos
-    clusters' engines, CHAOS_ROUNDS appends on one log pair (bases from
-    -B, windows to the ring's end), the whole log compared after each.
-    A = P: with P <= 8 that is the DataPlane's only active-set bucket."""
+def bench_engines() -> list:
+    """The bench's engines too small for the headline case: the shipped
+    8 x 3 shape (SB 256) and the one-partition baseline. The bench path
+    steps every partition each round, so A = P."""
+    return [("bench shipped engine", EngineConfig(**SHIPPED_SHAPE)),
+            ("bench baseline engine", EngineConfig(**BASE_SHAPE))]
+
+
+def small_append_vs_plain(ops, seed, engines) -> dict:
+    """Both append variants against the plain version at small engines
+    (the chaos clusters', the bench's shipped and baseline ones),
+    CHAOS_ROUNDS appends on one log pair (bases from -B, windows to the
+    ring's end), the whole log compared after each. A = P: with P <= 8
+    that is the DataPlane's only active-set bucket."""
     g = torch.Generator(device=DEV).manual_seed(seed + 7)
     errs = {k: 0 for k in KERNELS}
-    for label, ec in chaos_engines():
+    for label, ec in engines:
         R, P, S, SB, B = (ec.replicas, ec.partitions, ec.slots,
                           ec.slot_bytes, ec.max_batch)
         if P > 8:
@@ -589,7 +632,8 @@ def kernel_vs_plain(ops, cfg, seed) -> dict:
                          ext if packed else None,
                          f"{label} (R={R} P={P} S={S} B={B} A={A}, bases "
                          f"from -B)", errs, name, True)
-    for name, err in chaos_append_vs_plain(ops, seed).items():
+    for name, err in small_append_vs_plain(
+            ops, seed, chaos_engines() + bench_engines()).items():
         errs[name] = max(errs[name], err)
     return errs
 
@@ -2490,7 +2534,7 @@ def control_path(seed, card, workdir) -> dict:
 
 # bench.py's end-to-end topology (`_run_e2e`, bench.py:1057-1110) with its
 # cluster config, unchanged: the port's one copy of it,
-# `ripplemq_tpu_torch.profiles.host_edge.e2e_raw_config` (bench.py:794-850).
+# `ripplemq_tpu_torch.bench.e2e_raw_config` (bench.py:794-850).
 # 3 brokers on loopback TCP, topic "bench" of 1024 partitions at RF 3,
 # the controller's engine 1024 x 3 (slots 4608, B 512, SB 128,
 # fused_control and packed_writes, settle_window 8), a data_dir (an
@@ -2520,9 +2564,13 @@ def topology_digest() -> str:
 
 
 BROKER_LAT = (16, 250)        # awaited single-message producers x messages
+# The broker path's own depth, cut (16 x 250 -> 16 x 64 singles, 2 -> 1
+# sealed segments of bulk) when the bench path, whose e2e phase boots the
+# same topology, joined the whole run: it keeps the run inside its time.
+BROKER_PATH_LAT = (16, 64)
 BROKER_PRODUCERS = 8          # windowed bulk producers (bench.py:1057)
 BROKER_WINDOW = 16            # batches in flight per producer
-BROKER_SEALED = 2             # sealed 64 MiB segments the bulk must fill
+BROKER_SEALED = 1             # sealed 64 MiB segments the bulk must fill
 BROKER_AFTER_BATCHES = 16     # bulk batches per producer after the failover
 BROKER_CONSUMERS = 16         # consumer threads (auto-commit)
 BROKER_WAIT_S = 300.0         # bound of every wait of the phase
@@ -3050,8 +3098,8 @@ def broker_path(seed, card, workdir, commit_ab=False) -> dict:
         dp = controller.dataplane
         clients = BrokerClients(dict(
             bootstrap=[b.address for b in config.brokers], partitions=P,
-            max_batch=cfg.max_batch, read_batch=cfg.read_batch, seed=seed),
-            root)
+            max_batch=cfg.max_batch, read_batch=cfg.read_batch, seed=seed,
+            lat=list(BROKER_PATH_LAT)), root)
         batches = broker_bulk_batches(raw)
         # The main path: counts zeroed just before, read just after.
         append_ops.reset_launches()
@@ -3066,8 +3114,8 @@ def broker_path(seed, card, workdir, commit_ab=False) -> dict:
         stages = {s: hists[s]["mean"] for s in E2E_STAGES if s in hists}
         out["stages"] = stages
         print(f"broker path: traffic: {lat['appends_per_s']:.1f} "
-              f"single-message appends/s ({BROKER_LAT[0]} x "
-              f"{BROKER_LAT[1]} awaited), ack p50 {lat['p50_ms']:.3f} p99 "
+              f"single-message appends/s ({BROKER_PATH_LAT[0]} x "
+              f"{BROKER_PATH_LAT[1]} awaited), ack p50 {lat['p50_ms']:.3f} p99 "
               f"{lat['p99_ms']:.3f} p999 {lat['p999_ms']:.3f} ms; bulk "
               f"{bulk['messages']} msgs ({BROKER_PRODUCERS} producers x "
               f"{batches} batches of {cfg.max_batch}, window "
@@ -4567,6 +4615,186 @@ def tools_path(seed, card, workdir) -> dict:
                 witness_launches=dict(witness_launches))
 
 
+# ------------------------------------------------ phase 15: the bench path
+
+# The bench's own depths cut to the reference's CPU-backend ones
+# (`bench.DEPTHS["short"]`: 48 launches x 2 windows, A/B 32, baseline
+# 500, e2e 4 s x 1 phase); every width is the bench's.
+BENCH_DEPTH = "short"
+BENCH_SYNC_LAUNCHES = 16  # sustained launches counted for host syncs
+# The bench's phases that drive each kernel: the legacy append on every
+# engine and DataPlane phase, the packed one in the A/B's packed arms and
+# the e2e topology (fused + packed), the RS kernel in the stripe encode.
+BENCH_NEEDS = {"append_active": ("sustained", "fusion_ab"),
+               "append_active_packed": ("fusion_ab", "e2e"),
+               "gf_matmul": ("stripe_encode",)}
+
+
+def bench_syncs(bench, card) -> dict:
+    """Host syncs of the sustained method at the headline shape: one
+    window of BENCH_SYNC_LAUNCHES launches under
+    `torch.cuda.set_sync_debug_mode("warn")`, each synchronizing CUDA call
+    counted as the warning it raises; and the share of the window the
+    host spends enqueueing (the clock stopped before the fence)."""
+    import warnings
+
+    cfg = EngineConfig(**HEADLINE)
+    fns, alive, quorum, build, put = bench._make(cfg, DEV)
+    one = build(cfg, appends={p: [bench.PAYLOAD] * cfg.max_batch
+                              for p in range(cfg.partitions)},
+                leader=0, term=1)
+    inp = bench._stack(one, 8, put)
+    trims = bench._stage_trims(cfg, 8 * cfg.max_batch, BENCH_SYNC_LAUNCHES,
+                               put, adv_round=cfg.max_batch)
+    bench._sustained_warmup(fns, inp, alive, quorum, trims)
+    state = fns.init()
+    torch.cuda.synchronize()
+    def syncs(caught) -> int:  # the mode's own prototype notice aside
+        return sum("called a synchronizing CUDA operation" in str(w.message)
+                   for w in caught)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            for trim in trims:
+                state, out = fns.step_many(state, inp, alive, quorum, trim)
+            t_enqueue = time.perf_counter() - t0
+            in_loop = syncs(caught)
+            committed = bench._fetch(out.committed)
+            t_window = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    if not committed.all():
+        raise AssertionError("bench path: the sync-count window failed")
+    total = syncs(caught)
+    del state, out
+    res = dict(launches=BENCH_SYNC_LAUNCHES, syncs_in_loop=in_loop,
+               syncs_total=total,
+               syncs_per_launch=in_loop / BENCH_SYNC_LAUNCHES,
+               enqueue_s=t_enqueue, window_s=t_window,
+               enqueue_share=t_enqueue / t_window)
+    print(f"bench path: host syncs of the sustained method (headline "
+          f"1024 x 5, B 256, chain 8, {BENCH_SYNC_LAUNCHES} launches, "
+          f"set_sync_debug_mode warn): {in_loop} inside the launch loop "
+          f"({res['syncs_per_launch']:.2f} a launch), {total} with the "
+          f"fence; enqueue "
+          f"{t_enqueue * 1e3:.1f} ms of the {t_window * 1e3:.1f} ms window "
+          f"({res['enqueue_share']:.1%}) [{card}]", flush=True)
+    return res
+
+
+def bench_rails(bench, curve, workdir) -> dict:
+    """The rails prior of this run's operating curve, written as an
+    `slo_rails_file` and loaded back through the port's SloController."""
+    from ripplemq_tpu_torch.obs.metrics import Metrics
+    from ripplemq_tpu_torch.obs.trace import FlightRecorder
+    from ripplemq_tpu_torch.slo.controller import SloController
+
+    prior = bench._rails_prior(curve)
+    path = os.path.join(workdir, "slo_rails.json")
+    with open(path, "w") as f:
+        json.dump(prior, f)
+    config = ClusterConfig(brokers=(BrokerInfo(0, "127.0.0.1", 9000),),
+                           topics=(), slo_p99_ack_ms=50.0,
+                           slo_rails_file=path)
+    ctl = SloController(config, Metrics(enabled=True), FlightRecorder(),
+                        dataplane_fn=lambda: None)
+    got = {"read_coalesce_min_s": ctl.rc_min,
+           "read_coalesce_max_s": ctl.rc_max,
+           "chain_depth_min": ctl.cd_min, "chain_depth_max": ctl.cd_max}
+    if got != prior["rails"]:
+        raise AssertionError(f"bench path: the SLO controller loaded {got} "
+                             f"from the prior's rails {prior['rails']}")
+    return prior
+
+
+def bench_path(card, workdir) -> dict:
+    """Phase 15 (see the module docstring): `ripplemq_tpu_torch.bench`'s
+    ported phases at the bench's widths and BENCH_DEPTH, each phase's
+    kernel launches (counts zeroed just before it, read just after),
+    wall time and peak device memory; the artifact's gates; the rails
+    prior through the SLO controller; the sustained method's host syncs."""
+    import contextlib
+
+    from ripplemq_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    phases = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        append_ops.reset_launches()
+        rs_ops.reset_launches()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        phases[name] = dict(
+            s=time.perf_counter() - t0,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+            launches={"append_active": append_ops.LAUNCHES["append_active"],
+                      "append_active_packed":
+                          append_ops.LAUNCHES["append_active_packed"],
+                      "gf_matmul": rs_ops.LAUNCHES["gf_matmul"]})
+        print(f"bench path: {name}: {phases[name]['s']:.1f} s, peak device "
+              f"memory {phases[name]['peak_gb']:.2f} GB allocated "
+              f"({phases[name]['reserved_gb']:.2f} GB reserved), kernel "
+              f"launches {phases[name]['launches']}", flush=True)
+
+    result = bench._collect(DEV, BENCH_DEPTH, phase=phase)
+    bad = [k for k, _ in bench.HEADLINE_GATES
+           if not (isinstance(result.get(k), (int, float))
+                   and result[k] > 0)]
+    if bad or tuple(result) != bench.RESULT_KEYS \
+            or result["readback"] != "verified" \
+            or result["e2e_readback"] != "verified" \
+            or result["e2e_consume_verified"] != "count-exact" \
+            or "NVIDIA" not in (result["card"]["nvidia_smi"] or ""):
+        brief = {k: v for k, v in result.items() if k not in (
+            "admin_metrics", "latency_decomposition", "operating_curve")}
+        raise AssertionError(f"bench path: gates failed ({bad}): {brief}")
+    launches = collections.Counter()
+    for got in phases.values():
+        launches.update(got["launches"])
+    for kernel, needs in BENCH_NEEDS.items():
+        for name in needs:
+            if not phases[name]["launches"][kernel]:
+                raise AssertionError(f"bench path: {kernel} never launched "
+                                     f"in the {name} phase")
+    prior = bench_rails(bench, result["operating_curve"], workdir)
+    syncs = bench_syncs(bench, card)
+    head = {k: result[k] for k in (
+        "value", "vs_baseline", "baseline_appends_per_sec",
+        "burst_window_appends_per_sec", "shipped_shape_appends_per_sec",
+        "p50_ack_ms", "p99_ack_ms", "p999_ack_ms", "round_rtt_ms",
+        "consume_msgs_per_sec", "codec_mb_per_sec",
+        "stripe_encode_mb_per_sec", "e2e_appends_per_sec",
+        "e2e_mb_per_sec", "e2e_acked", "e2e_consume_msgs_per_sec",
+        "e2e_consumed", "e2e_cpu_decomposition")}
+    print(f"bench path: headline (depth {BENCH_DEPTH}: "
+          f"{json.dumps(bench.DEPTHS[BENCH_DEPTH])}): {json.dumps(head)}; "
+          f"readback {result['readback']}, e2e {result['e2e_readback']}, "
+          f"{result['e2e_consume_verified']}; the e2e clients torch-free "
+          f"[{card}]", flush=True)
+    print(f"bench path: control_fusion_ab "
+          f"{json.dumps(result['control_fusion_ab'])}", flush=True)
+    print(f"bench path: operating curve "
+          f"{json.dumps(result['operating_curve'])}; rails "
+          f"{json.dumps(prior['rails'])} (floor p99 "
+          f"{prior['floor_p99_ack_ms']} ms) loaded by SloController",
+          flush=True)
+    print(f"bench path: e2e stages "
+          f"{json.dumps({k: v.get('mean') for k, v in result['latency_decomposition'].items()})}; "
+          f"settle {json.dumps(result['settle_pipeline'])}", flush=True)
+    print(f"bench path: done in {time.perf_counter() - t_phase:.1f} s; "
+          f"kernel launches {dict(launches)} [{card}]", flush=True)
+    return dict(launches=dict(launches), phases=phases, syncs=syncs)
+
+
 def build_kernels() -> None:
     """Both kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -4608,6 +4836,9 @@ def main() -> int:
                            "path (no result line)")
     only.add_argument("--tools-only", action="store_true",
                       help="build the kernels and run only the tools path "
+                           "(no result line)")
+    only.add_argument("--bench-only", action="store_true",
+                      help="build the kernels and run only the bench path "
                            "(no result line)")
     only.add_argument("--gloo-probe", action="store_true",
                       help="run only the gloo probe: the spmd binding's "
@@ -4653,7 +4884,7 @@ def main() -> int:
             broker_path(args.seed, card, workdir, commit_ab=True)
         return 0
     if args.planes_only:
-        chaos_append_vs_plain(append_ops, args.seed)
+        small_append_vs_plain(append_ops, args.seed, chaos_engines())
         rs_widths_vs_plain(stripe_ladder(), args.seed,
                            "the stripe ladder (every shard class)")
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
@@ -4668,9 +4899,14 @@ def main() -> int:
             witness_path(args.seed, card, workdir)
         return 0
     if args.tools_only:
-        chaos_append_vs_plain(append_ops, args.seed)
+        small_append_vs_plain(append_ops, args.seed, chaos_engines())
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
             tools_path(args.seed, card, workdir)
+        return 0
+    if args.bench_only:
+        small_append_vs_plain(append_ops, args.seed, bench_engines())
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
+            bench_path(card, workdir)
         return 0
     cfg = EngineConfig(**HEADLINE)
     errs = kernel_vs_plain(append_ops, cfg, args.seed)
@@ -4696,6 +4932,7 @@ def main() -> int:
         spmd = spmd_path(args.seed, card, workdir)
         witness = witness_path(args.seed, card, workdir)
         tools = tools_path(args.seed, card, workdir)
+        bench_run = bench_path(card, workdir)
     launches_dp = {DP_KERNEL[p]: r["launches"][DP_KERNEL[p]]
                    for p, r in dp_runs.items()}
     launches_ctrl = ctrl["launches_control"]
@@ -4728,6 +4965,7 @@ def main() -> int:
                     launches_witness=launches_witness[name],
                     launches_witness_seeds=seeds.get(name, 0),
                     launches_tools=tools["launches"].get(name, 0),
+                    launches_bench=bench_run["launches"].get(name, 0),
                     max_abs_err=errs[name],
                     ms=times[name]["ms"], wrapper_ms=times[name]["wrapper_ms"],
                     plain_ms=times[name]["plain_ms"],
@@ -4749,6 +4987,7 @@ def main() -> int:
         launches_witness=launches_witness["gf_matmul"],
         launches_witness_seeds=seeds.get("gf_matmul", 0),
         launches_tools=tools["launches"].get("gf_matmul", 0),
+        launches_bench=bench_run["launches"].get("gf_matmul", 0),
         max_abs_err=errs["gf_matmul"], ms=enc["ms"],
         wrapper_ms=enc["wrapper_ms"], plain_ms=enc["plain_ms"],
         bound_ms=enc["bound_ms"], bound_by="bytes", library_ms=None,

@@ -36,6 +36,7 @@ MODULE_PREFIX = "test_torch_"
 # is annotated so the next budget squeeze knows where the time goes.
 FAST_MODULES = (
     "test_torch_append",           # ~20 s: kernel parity, plain path
+    "test_torch_bench",            # ~60 s: bench parity, e2e at 8 partitions
     "test_torch_broker",
     "test_torch_chain_settle",
     "test_torch_chaos",            # ~65 s: 3-seed smoke, striped, lockstep
@@ -80,6 +81,7 @@ FAST_MODULES = (
     "test_torch_profiles",         # ~60 s: soak runs of both packages
     "test_torch_read_batching",
     "test_torch_read_cache",
+    "test_torch_readme_bench",
     "test_torch_repl_pipeline",
     "test_torch_replication",
     "test_torch_retention",

@@ -41,47 +41,9 @@ import sys
 import tempfile
 import time
 
-
-def e2e_raw_config(ports: list[int], partitions: int = 1024,
-                   host_workers: int = 1) -> dict:
-    """The e2e topology's cluster config — the port's one copy of the
-    reference bench's (`bench.py` `e2e_raw_config`), which the
-    decomposition and `chip_smoke.py`'s broker paths share: a copied
-    dict drifts. `host_workers` > 1 boots the multi-core host plane
-    (parallel/hostplane.py) on every broker."""
-    return {
-        "host_workers": host_workers,
-        "brokers": [{"id": i, "host": "127.0.0.1", "port": p}
-                    for i, p in enumerate(ports)],
-        "topics": [{"name": "bench", "partitions": partitions,
-                    "replication_factor": 3}],
-        # Engine sized to the system it measures: R=3 replica slots (3
-        # brokers, topic RF 3) and a ring deep enough that trim rides
-        # behind the store. read_batch 1024: the consume phase drains
-        # through the host mirror, which serves up to read_batch rows
-        # per call. fused_control/packed_writes and the pipelined
-        # settle window are on at the operating point the bench ships.
-        "engine": {
-            "partitions": partitions, "replicas": 3, "slots": 4608,
-            "slot_bytes": 128, "max_batch": 512, "read_batch": 1024,
-            "max_consumers": 64, "max_offset_updates": 8,
-            "fused_control": True, "packed_writes": True,
-            "settle_window": 8,
-        },
-        "election_timeout_s": 0.5,
-        # Generous liveness horizon: a starved heartbeat thread must
-        # read as load, not death (a mid-run metadata election turns a
-        # throughput measurement into a failover drill).
-        "metadata_election_timeout_s": 8.0,
-        "membership_poll_s": 0.5,
-        "rpc_timeout_s": 60.0,   # a queued append must outlive a backlog
-        # The pool must cover the full offered concurrency: in-flight
-        # produce batches plus the drain's pipelined commits.
-        "rpc_workers": 320,
-        # Throughput operating point: gather ~coalesce_s of burst per
-        # dispatch (fewer, fuller dispatches win at saturation).
-        "coalesce_s": 0.03,
-    }
+# The e2e topology lives in the port's bench (one copy; the decomposition
+# must measure the shape the bench runs).
+from ripplemq_tpu_torch.bench import e2e_raw_config
 
 
 def _t(fn, n: int, *, warmup: int = 3) -> float:
