@@ -12,8 +12,8 @@
 `--planes-only` only phase 11 (after the RS kernel's check at the stripe
 ladder's widths), `--spmd-only` only phase 12, `--witness-only` only
 phase 13, `--tools-only` only phase 14 and `--bench-only` only phase
-15 (after the append kernel's check at the bench's shipped and baseline
-engines), without the result line:
+15 (after the append kernel's check at the bench's small engines and
+the spmd scaling shards), without the result line:
 loops for measuring the DataPlane, the control path, the broker path
 (`--broker-only` also times the consumers' drain with the reference's
 auto-commit against the port's), the planes path, the lockstep path,
@@ -46,7 +46,11 @@ phase that fails raises, and the script exits nonzero with no result.
    offsets; bases from -B) and its bulk path with SB % 16 != 0
    (SB = 24); then the small engines at A = P, 8 appends on one log
    pair each: the chaos clusters', the bench's shipped shape (8 x 3,
-   slots 4096, SB 256, B 32) and its baseline (1 x 5, slots 2048, B 8);
+   slots 4096, SB 256, B 32), its baseline (1 x 5, slots 2048, B 8) and
+   its slice-J clusters' (the replication bytes' 1 x 3, SB 512, B 16;
+   the fan-out's 2 x 3, SB 64, B 16; the group drain's, the storm's,
+   the SLO step's and the split's); the spmd scaling curve's shards
+   (R 1, slots 2496, SB 128, B 64) at 256 and 32 partitions, A = P;
    then the GF(2^8) kernel against its plain version
    (torch.equal) at a 64 MiB segment's shard length with the encode
    matrix and all 10 reconstruct inverses, every pair of input and output
@@ -165,10 +169,10 @@ phase that fails raises, and the script exits nonzero with no result.
    to distinct standbys), follower reads, two host workers a broker (the
    controller's workers spawned from this script, which their re-run of
    it keeps torch-free; every worker process checked from outside for
-   torch and JAX libraries). Traffic: 16 x 250 awaited single-message
-   produces through the host workers; a bulk backlog of 8 producers x
-   window 16 x 96 batches of 512 (rounds of up to 8 MiB, so a group
-   commit reaches the sender's cap); 16 `follower_reads` consumers
+   torch and JAX libraries). Traffic (depth cut for the bench path): 16 x 64
+   awaited single-message produces through the host workers; a bulk
+   backlog of 8 producers x window 16 x 32 batches of 512 (rounds of up
+   to 8 MiB); 16 `follower_reads` consumers
    reading 256 messages an answer, every acked message once, byte-exact,
    at its acked offset, some answers from leased followers that decode
    striped groups on a read miss; then the controller stopped: a standby
@@ -180,18 +184,14 @@ phase that fails raises, and the script exits nonzero with no result.
    serving, the packed append at least once a round. Every encode width
    past the ladder is checked against the plain version. Then one
    seed-0 chaos run (`run_chaos`, proc backend, striped, follower reads,
-   2 host workers, on the card) with no violation;
+   2 host workers, on the card; one phase, was two) with no
+   violation;
 12. the lockstep path (slice F, the multi-device binding): the append
    kernels against their plain versions at the shapes the spmd binding
    gives them (a cell's one-replica 512-partition shard of the broker
    path's ring, the batcher's active sets localized, packed and legacy;
-   the 1x1 arm's dense write); then, each in its own process so that no
-   process group outlives it here: (a) the 1x1 arm, bench.py's
-   `spmd_parity` shape (1024 partitions, R 1, slots 12352, B 256, chain
-   8), the local binding and the spmd binding (fused control, and
-   legacy) on a world of one (NCCL) replaying the same seeded chained
-   rounds, states byte-identical at the end, rounds/s and committed
-   appends/s each and the spmd-vs-local delta; (b) the lockstep broker:
+   the bench's spmd parity dense write); then, in its own process so
+   that no process group outlives it here, the lockstep broker:
    the broker path's topology and engine, the controller (rank 0 of a
    6-rank gloo world, all on this card) with `engine_mode="spmd"` on a
    (replica 3, part 2) mesh whose other 5 cells are
@@ -199,11 +199,13 @@ phase that fails raises, and the script exits nonzero with no result.
    standbys local; 16 x 64 awaited single-message produces, a bulk of
    8 x 96 batches of 512, every acked message read back exactly, the
    collectives a round and their mean us, the packed append's launches
-   on every rank >= the controller's rounds; (c) the drill: one engine
+   on every rank >= the controller's rounds; then the drill: one engine
    worker SIGKILLed during a second bulk (retried under the producers'
    idempotent identity), the plane must raise and break, the controller
    abdicate and release it, a standby promote on its local engine and
-   serve, and every acked message read back exactly once;
+   serve, and every acked message read back exactly once (the 1x1
+   parity arm, local vs spmd on a world of one, is the bench path's
+   `spmd_parity` phase and its state check);
 13. the witness path: the port's lint (`ripplemq_tpu_torch.analysis`)
    run clean on this host (per-rule counts and runtimes), the static
    lock graph's closure, then the runtime lock witness on the card,
@@ -211,7 +213,7 @@ phase that fails raises, and the script exits nonzero with no result.
    full width (1024 partitions x RF 3, slots 4608, B 512, fused +
    packed, 64 MiB erasure-coded segments, the standbys CLI processes)
    with `lock_witness: true`: 16 x 64 awaited single-message produces
-   and a bulk of 8 x 96 batches of 512 (a depth cut of the broker
+   and a bulk of 8 x 32 batches of 512 (a depth cut of the broker
    path's traffic), every acked message read back exactly, the packed
    append at least once a controller round, the controller's witness
    report acyclic with no ordering outside the closure (its rates are
@@ -219,8 +221,8 @@ phase that fails raises, and the script exits nonzero with no result.
 14. the tools path: the port's operator tools
    (`ripplemq_tpu_torch.profiles`) on the card, through their `main`:
    (a) the chaos soak CLI, every broker's plane on the card: an
-   in-process `--sweep 3 --witness`; seed 1 `--phases 2 --phase-s 0.5
-   --witness` and seed 11's striped schedule (a crash with a disk flip,
+   in-process `--sweep 2 --witness` (was 3 seeds); seed 1
+   `--phases 2 --phase-s 0.5 --witness` and seed 11's striped schedule (a crash with a disk flip,
    then a stripe-holder kill) written to a trace file and run with
    `--replay --witness --postmortems` (the CPU twins' chaos gates, which
    the witness path ran before; their launches count as the witness
@@ -242,28 +244,44 @@ phase that fails raises, and the script exits nonzero with no result.
    payload-only-CRC round records (B rows of SB bytes) migrated by
    `store_migrate.migrate_store`, then `recover_image` onto the card:
    every record's rows equal on the card, the migration's MB/s;
-15. the bench path: the port's bench (`ripplemq_tpu_torch.bench`), its
-   ported phases through `bench._collect` on the card at the bench's
-   widths and the reference's CPU-backend depths (48 launches x 2
-   windows, A/B 32 launches, baseline 500, e2e 4 s x 1 phase): the
-   sustained engine rate at the headline shape (1024 partitions x 5
-   replicas, slots 12352, B 256, chain 8: an 8.26 GB ring, wrapping
-   behind staged trims, its tail read back), the burst window, the
-   shipped 8 x 3 shape, the one-partition baseline, ack latency, the
-   round RTT, the operating curve and consume through `DataPlane` at
-   1024 x 5, B 32, the fused/packed A/B (eight headline engines in
-   turn), the codec, the stripe encode (the RS kernel), and the e2e
-   topology (the controller's BrokerServer on the card at 1024 x RF 3,
-   B 512, two standby processes, the clients in two torch-free
-   processes); each phase's kernel launches (counts zeroed just before
-   it, read just after), wall time and peak device memory; gates: every
+15. the bench path: the port's bench (`ripplemq_tpu_torch.bench`), every
+   phase of the reference's `main()` through `bench._collect` on the card
+   at the bench's widths and the reference's CPU-backend depths (48
+   launches x 2 windows, A/B 32 launches, baseline 500, spmd parity 32,
+   e2e and each host-plane arm 4 s x 1 phase): the sustained engine rate
+   at the headline shape (1024 partitions x 5 replicas, slots 12352, B
+   256, chain 8: an 8.26 GB ring, wrapping behind staged trims, its tail
+   read back), the burst window, the shipped 8 x 3 shape, the
+   one-partition baseline, ack latency, the round RTT, the operating
+   curve and consume through `DataPlane` at 1024 x 5, B 32; the spmd
+   parity A/B (local, spmd fused and spmd legacy on a world of one this
+   process forms and leaves, 1024 x R 1, slots 12352, B 256, chain 8)
+   and the spmd scaling curve (worlds of 1, 2, 4 and 8 gloo rank
+   processes on this card, P 256 sharded, B 64); the fused/packed A/B
+   (eight headline engines in turn), the codec, the replication bytes
+   (5 in-process brokers, full and striped: the RS kernel), the stripe
+   encode, the multi-group drain, the SLO step, the online split, the
+   fan-out A/B (a 3-broker process cluster an arm, followers off and on,
+   4 and 16 consumers), the control-plane storm (up to 1000 members in
+   100 groups), the e2e topology (the controller's BrokerServer on the
+   card at 1024 x RF 3, B 512, two standby processes, the clients in two
+   torch-free processes) and the host-plane sweep (that topology at 1, 2
+   and 4 host workers); each phase's kernel launches (counts zeroed just
+   before it, read just after; the launches of child processes are
+   theirs), wall time and peak device memory; gates: every
    HEADLINE_GATES figure > 0, the artifact's keys `bench.RESULT_KEYS`,
-   both readbacks verified and consume count-exact, the card's name in
-   `card`, the legacy append launched in the engine phases, the packed
-   one in the A/B and the e2e phase, the RS kernel in the stripe encode;
-   the run's operating curve turned into a rails prior and loaded back
-   through the port's `SloController`; then the sustained method's host
-   syncs: one headline window under `set_sync_debug_mode("warn")`;
+   every readback verified and count-exact (consume, e2e, each
+   host-plane arm, each group, each fan-out consumer with followers
+   serving in the ON arms, the split's acked produces), the storm error
+   free, the card's name in `card`, the legacy append launched in the
+   engine phases and exactly once a round of the parity A/B's three
+   bindings, the packed one in the A/B, the e2e phase and the host-plane
+   sweep, the RS kernel in the stripe encode and the replication bytes;
+   the parity shape's three bindings replaying one seeded chained window
+   to byte-identical states; the run's operating curve turned into a
+   rails prior and loaded back through the port's `SloController`; then
+   the sustained method's host syncs: one headline window under
+   `set_sync_debug_mode("warn")`;
 16. times: each kernel's device time alone (the profiler's events by
    kernel name) and through its wrapper (CUDA events, after warm-up),
    inputs rotated over 3 buffers so that they come from HBM; ms per
@@ -276,8 +294,8 @@ phase that fails raises, and the script exits nonzero with no result.
    path as `launches_dataplane`, on the control path as
    `launches_control`, each kernel's on the broker path as
    `launches_broker` and on the planes path as `launches_planes`, and on
-   the lockstep path as `launches_spmd`: the legacy append's in the 1x1
-   arm, the packed append's a rank of the lockstep broker; on the
+   the lockstep path as `launches_spmd`: the packed append's a rank of
+   the lockstep broker; on the
    witness path as `launches_witness`, its seeds' soak runs included,
    which run inside the tools path and are also given alone as
    `launches_witness_seeds`; on the tools path as `launches_tools`,
@@ -362,6 +380,7 @@ if __name__ != "__mp_main__":
 # Torch-free, so outside the guard: BROKER_SHAPE below derives from it.
 from ripplemq_tpu_torch.bench import (  # noqa: E402
     BASE_SHAPE,
+    PARITY_SHAPE,
     SHIPPED_SHAPE,
     e2e_raw_config,
 )
@@ -532,10 +551,70 @@ def chaos_engines() -> list:
 
 def bench_engines() -> list:
     """The bench's engines too small for the headline case: the shipped
-    8 x 3 shape (SB 256) and the one-partition baseline. The bench path
-    steps every partition each round, so A = P."""
+    8 x 3 shape (SB 256) and the one-partition baseline (the bench path
+    steps every partition each round, so A = P); then the clusters of the
+    slice-J runners, each derived from the config builder its runner
+    calls: the replication-bytes brokers' (1 x 3, slots 1024, SB 512,
+    B 16), the fan-out's process brokers' (2 x 3, slots 256, SB 64,
+    B 16), and the in-process clusters' small engines of the group
+    drain (4 x 3), the storm (8 x 3), the SLO step (1 x 1) and the
+    split (3 x 3 with its spare slot)."""
+    from ripplemq_tpu_torch import bench
+    from ripplemq_tpu_torch.chaos.cluster import (
+        make_cluster_config,
+        small_engine,
+    )
+    from ripplemq_tpu_torch.chaos.proc_cluster import make_proc_cluster_config
+
     return [("bench shipped engine", EngineConfig(**SHIPPED_SHAPE)),
-            ("bench baseline engine", EngineConfig(**BASE_SHAPE))]
+            ("bench baseline engine", EngineConfig(**BASE_SHAPE)),
+            ("repl_bytes engine", small_engine(1, 3, **bench.REPL_ENGINE)),
+            ("consume_fanout engine", make_proc_cluster_config(
+                [0] * 3, topics=(Topic("fanout", 2, 3),)).engine),
+            ("group_consume engine", make_cluster_config(
+                3, topics=(Topic("gbench", 4, 3),)).engine),
+            ("control_plane_storm engine", make_cluster_config(
+                3, topics=(Topic("storm", 8, 3),)).engine),
+            ("slo_convergence engine", make_cluster_config(
+                1, topics=(Topic("slobench", 1, 1),)).engine),
+            ("split_rebalance engine", make_cluster_config(
+                3, topics=(Topic("splitbench", 2, 3),),
+                spare_slots=1).engine)]
+
+
+def scaling_vs_plain(ops, seed) -> dict:
+    """Both append variants against the plain version at the spmd scaling
+    curve's shard shapes (`profiles.spmd_scaling.SHAPE`: slots 2496, SB
+    128, B 64, R 1) at local_P 256 (one rank) and 32 (eight ranks), the
+    binding's dense round (A = local_P): windows to the ring's end, every
+    base in its last B rows, and entries no replica writes; the whole log
+    compared after each."""
+    from ripplemq_tpu_torch.profiles.spmd_scaling import SHAPE
+
+    g = torch.Generator(device=DEV).manual_seed(seed + 11)
+    errs = {k: 0 for k in KERNELS}
+    S, SB, B = SHAPE["slots"], SHAPE["slot_bytes"], SHAPE["max_batch"]
+    for local_P in (SHAPE["partitions"], SHAPE["partitions"] // 8):
+        shape = _Shape(1, local_P, S, SB, B)
+        log_k = torch.empty((1, local_P, S + B, SB), dtype=torch.uint8,
+                            device=DEV).random_(generator=g)
+        log_p = log_k.clone()
+        for kw, label in ((dict(to_ring_end=True), "to the ring end"),
+                          (dict(to_ring_end=True, ring_end_only=True),
+                           "every base in the ring's last B rows"),
+                          (dict(to_ring_end=True, unwritten=local_P // 8),
+                           f"{local_P // 8} entries with do_write all 0")):
+            for packed in (False, True):
+                entries, ids, base, do_write, ext = random_case(
+                    g, shape, local_P, **kw)
+                name = "append_active_packed" if packed else "append_active"
+                _append_case(ops, log_k, log_p, entries, ids, base, do_write,
+                             ext if packed else None,
+                             f"spmd scaling shard (R=1 P={local_P} S={S} "
+                             f"SB={SB} B={B}) A={local_P}, {label}", errs,
+                             name, False)
+        del log_k, log_p
+    return errs
 
 
 def small_append_vs_plain(ops, seed, engines) -> dict:
@@ -634,6 +713,8 @@ def kernel_vs_plain(ops, cfg, seed) -> dict:
                          f"from -B)", errs, name, True)
     for name, err in small_append_vs_plain(
             ops, seed, chaos_engines() + bench_engines()).items():
+        errs[name] = max(errs[name], err)
+    for name, err in scaling_vs_plain(ops, seed).items():
         errs[name] = max(errs[name], err)
     return errs
 
@@ -2585,11 +2666,12 @@ E2E_STAGES = ("engine.dispatch_us", "settle.commit_wait_us",
 
 def broker_bulk_batches(raw) -> int:
     """Bulk batches per producer: enough full batches (B rows of SB bytes
-    in the store each) for BROKER_SEALED + 1 segments, so that at least
-    BROKER_SEALED of them seal."""
+    in the store each) for BROKER_SEALED + 1/4 segments (was + 1), so
+    that at least BROKER_SEALED of them seal."""
     e = raw["engine"]
     seg = raw.get("segment_bytes", SEG_BYTES)
-    total = -(-(BROKER_SEALED + 1) * seg // (e["max_batch"] * e["slot_bytes"]))
+    total = -(-(4 * BROKER_SEALED + 1) * seg
+              // (4 * e["max_batch"] * e["slot_bytes"]))
     return -(-total // BROKER_PRODUCERS)
 
 
@@ -3223,8 +3305,11 @@ def broker_path(seed, card, workdir, commit_ab=False) -> dict:
 PLANES_BROKERS = 5
 PLANES_STANDBYS = 4
 PLANES_HOST_WORKERS = 2
-PLANES_BATCHES = 96           # bulk batches per producer (a depth cut)
-PLANES_AFTER_BATCHES = 16     # bulk batches per producer after the failover
+# Depth cut to make room for the bench path's slice-J phases: was 96 bulk
+# batches a producer, 16 after the failover and 16 x 250 singles.
+PLANES_LAT = (16, 64)         # awaited single-message producers x messages
+PLANES_BATCHES = 32           # bulk batches per producer
+PLANES_AFTER_BATCHES = 8      # bulk batches per producer after the failover
 PLANES_DRAIN_MAX = 256        # messages a follower-drain answer
 # The stripe sender's stages beside bench.py's: encode, one repl.stripes
 # frame round trip (the striped twin of repl.frame_us), rounds a group.
@@ -3232,7 +3317,7 @@ PLANES_STAGES = E2E_STAGES + ("stripes.encode_us", "stripes.frame_us",
                               "stripes.group_rounds")
 # (e): the reference's steady proc seed (tests/test_proc_chaos.py:27) on
 # the card, striped, with follower reads and host workers.
-PLANES_CHAOS = dict(seed=0, phases=2, phase_s=0.8, ops_per_phase=2,
+PLANES_CHAOS = dict(seed=0, phases=1, phase_s=0.8, ops_per_phase=2,
                     backend="proc", replication_mode="striped",
                     follower_reads=True, host_workers=2,
                     converge_timeout_s=120.0)
@@ -3408,7 +3493,7 @@ def planes_path(seed, card, workdir) -> dict:
         clients = BrokerClients(dict(
             bootstrap=[b.address for b in config.brokers], partitions=P,
             max_batch=cfg.max_batch, read_batch=cfg.read_batch, seed=seed,
-            drain_max=PLANES_DRAIN_MAX), root)
+            drain_max=PLANES_DRAIN_MAX, lat=list(PLANES_LAT)), root)
 
         def counters():
             return controller.dispatch(
@@ -3480,7 +3565,7 @@ def planes_path(seed, card, workdir) -> dict:
                    stages=stages, boot_ms=boot_ms, host_plane=hp)
         share = 100 * drain["follower_answers"] / drain["answers"]
         print(f"planes path: traffic: {lat['appends_per_s']:.1f} "
-              f"single-message appends/s ({BROKER_LAT[0]} x {BROKER_LAT[1]} "
+              f"single-message appends/s ({PLANES_LAT[0]} x {PLANES_LAT[1]} "
               f"awaited, through the host workers), ack p50 "
               f"{lat['p50_ms']:.3f} p99 {lat['p99_ms']:.3f} p999 "
               f"{lat['p999_ms']:.3f} ms; bulk {bulk['messages']} msgs "
@@ -3584,13 +3669,6 @@ def planes_path(seed, card, workdir) -> dict:
 
 # ------------------------------------------------ the lockstep path (slice F)
 
-# The 1x1 arm: bench.py's `spmd_parity` shape (bench.py:660-663), chain 8.
-SPMD_PARITY = dict(partitions=1024, replicas=1, slots=12352, slot_bytes=128,
-                   max_batch=256, read_batch=32, max_consumers=64,
-                   max_offset_updates=8)
-SPMD_CHAIN = 8
-SPMD_LAUNCHES = 60            # chained launches a trial (bench.py's 240: cut)
-SPMD_TRIALS = 7               # trials a binding, alternated; best and median
 # The lockstep broker: the broker path's topology and engine, the
 # controller's engine a (replica 3, part 2) mesh: itself and 5 workers.
 SPMD_MESH = (3, 2)
@@ -3606,8 +3684,9 @@ def spmd_shard_checks(ops, seed) -> dict:
     the spmd binding gives them: the lockstep broker's cell (one replica
     of 512 partitions of the broker path's ring, slots 4608, B 512) with
     the batcher's global active sets localized the binding's way (ids of
-    the other shard become -1), packed and legacy, and the 1x1 arm's
-    whole-ring dense write (1024 partitions, R 1, slots 12352, B 256)."""
+    the other shard become -1), packed and legacy, and the bench's spmd
+    parity whole-ring dense write (`bench.PARITY_SHAPE`: 1024 partitions,
+    R 1, slots 12352, B 256)."""
     g = torch.Generator(device=DEV).manual_seed(seed + 9)
     errs = {k: 0 for k in KERNELS}
     cfg = EngineConfig(**BROKER_SHAPE)
@@ -3633,7 +3712,7 @@ def spmd_shard_checks(ops, seed) -> dict:
                          f"B={shard.max_batch}, {int(mine.sum())} of A={A} "
                          f"ids in the shard)", errs, name, False)
     del log_k, log_p
-    pc = EngineConfig(**SPMD_PARITY)
+    pc = EngineConfig(**PARITY_SHAPE)
     log_k = torch.empty((1, pc.partitions, pc.slots + pc.max_batch,
                          pc.slot_bytes), dtype=torch.uint8,
                         device=DEV).random_(generator=g)
@@ -3642,99 +3721,11 @@ def spmd_shard_checks(ops, seed) -> dict:
                                                 to_ring_end=True)
     ids = torch.arange(pc.partitions, dtype=torch.int32, device=DEV)
     _append_case(ops, log_k, log_p, entries, ids, base, do_write, None,
-                 f"1x1 arm dense (R=1 P={pc.partitions} S={pc.slots} "
+                 f"1x1 parity dense (R=1 P={pc.partitions} S={pc.slots} "
                  f"B={pc.max_batch})", errs, "append_active", False)
     del log_k, log_p
     torch.cuda.empty_cache()
     return errs
-
-
-def spmd_parity_child(out_path: str) -> int:
-    """The 1x1 arm, in its own process (`chip_smoke.py --spmd-child
-    parity OUT`): the local binding and the spmd binding on a world of
-    one (NCCL), fused control and legacy, replay the same seeded chained
-    dense rounds with the same trims; their states must end
-    byte-identical. Writes rounds/s and committed appends/s a binding."""
-    import dataclasses
-
-    from ripplemq_tpu_torch.core.encode import build_step_input
-    from ripplemq_tpu_torch.core.state import unfuse_state
-    from ripplemq_tpu_torch.parallel.engine import make_spmd_fns
-    from ripplemq_tpu_torch.parallel.mesh import make_mesh
-
-    cfg = EngineConfig(**SPMD_PARITY)
-    cfg_fused = dataclasses.replace(cfg, fused_control=True)
-    P, B, S = cfg.partitions, cfg.max_batch, cfg.slots
-    rng = np.random.default_rng(17)
-    one = build_step_input(cfg, appends={
-        p: [rng.integers(0, 256, PAYLOAD_BYTES, dtype=np.uint8).tobytes()] * B
-        for p in range(P)}, leader=0, term=1)
-    chained = StepInput(*(None if x is None else torch.from_numpy(
-        np.broadcast_to(x, (SPMD_CHAIN,) + x.shape).copy()).to(DEV)
-        for x in one))
-    alive = torch.ones((P, 1), dtype=torch.bool, device=DEV)
-    quorum = torch.ones((P,), dtype=torch.int32, device=DEV)
-    adv = SPMD_CHAIN * B
-    n_launch = 2 + SPMD_TRIALS * SPMD_LAUNCHES  # warm-up, then the trials
-    trims = [torch.full((P,), max(0, (k + 1) * adv - S), dtype=torch.int32,
-                        device=DEV) for k in range(n_launch)]
-    mesh = make_mesh(1, 1, device=DEV)
-    bindings = {"local": make_local_fns(cfg, device=DEV),
-                "spmd": make_spmd_fns(cfg_fused, mesh),
-                "spmd_legacy": make_spmd_fns(cfg, mesh)}
-    states = {name: fns.init() for name, fns in bindings.items()}
-    done = {name: 0 for name in bindings}
-
-    def launch(name, n):
-        fns, st = bindings[name], states[name]
-        for _ in range(n):
-            st, out = fns.step_many(st, chained, alive, quorum,
-                                    trims[done[name]])
-            done[name] += 1
-        states[name] = st
-        return out
-
-    for name in bindings:
-        launch(name, 2)
-    torch.cuda.synchronize()
-    # Each binding's launches are counted over its own trials only.
-    launches = {name: collections.Counter() for name in bindings}
-    trials = {name: [] for name in bindings}
-    for _ in range(SPMD_TRIALS):
-        for name in bindings:
-            append_ops.reset_launches()
-            t0 = time.perf_counter()
-            out = launch(name, SPMD_LAUNCHES)
-            torch.cuda.synchronize()
-            trials[name].append(SPMD_LAUNCHES / (time.perf_counter() - t0))
-            launches[name].update(append_ops.LAUNCHES)
-            if not bool(out.committed.all()):
-                raise AssertionError(f"1x1 arm: {name} round did not commit")
-    best = {name: max(t) for name, t in trials.items()}
-    median = {name: float(np.median(t)) for name, t in trials.items()}
-    named = {name: (unfuse_state(st) if hasattr(st, "ctrl") else st)
-             for name, st in states.items()}
-    equal = {name: all(torch.equal(getattr(named["local"], f),
-                                   getattr(named[name], f))
-                       for f in named["local"]._fields)
-             for name in ("spmd", "spmd_legacy")}
-    rounds = {n: r * SPMD_CHAIN for n, r in best.items()}
-    res = dict(
-        rounds_per_s=rounds,
-        trial_rounds_per_s={n: [r * SPMD_CHAIN for r in t]
-                            for n, t in trials.items()},
-        appends_per_s={n: r * P * B for n, r in rounds.items()},
-        delta_pct=100 * (best["spmd"] - best["local"]) / best["local"],
-        legacy_delta_pct=100 * (best["spmd_legacy"] - best["local"])
-        / best["local"],
-        median_delta_pct=100 * (median["spmd"] - median["local"])
-        / median["local"],
-        equal=equal, launches={n: dict(c) for n, c in launches.items()},
-        backend=mesh.backend, collectives=dict(mesh.stats),
-        expected_launches=SPMD_TRIALS * SPMD_LAUNCHES * SPMD_CHAIN)
-    with open(out_path, "w") as f:
-        json.dump(res, f)
-    return 0
 
 
 def spmd_worker_stats(client, workers, reset=False) -> list:
@@ -4070,7 +4061,7 @@ def spmd_child(kind: str, arg: str) -> None:
     process groups (a broken world's teardown waits for a dead peer)."""
     rc = 1
     try:
-        rc = {"parity": spmd_parity_child, "broker": spmd_broker_child,
+        rc = {"broker": spmd_broker_child,
               "gloo": gloo_probe_child}[kind](arg)
     except BaseException:
         import traceback
@@ -4098,40 +4089,12 @@ def run_spmd_child(kind: str, arg: str, what: str) -> None:
 
 def spmd_path(seed, card, workdir) -> dict:
     """Phase 12 (see the module docstring): the spmd binding's kernels at
-    its shard shapes, the 1x1 arm and the lockstep broker with its drill,
-    each child in its own process."""
+    its shard shapes, then the lockstep broker with its drill in a child
+    process (the 1x1 parity arm is the bench path's `spmd_parity`)."""
     t_phase = time.perf_counter()
     errs = spmd_shard_checks(append_ops, seed)
     root = os.path.join(workdir, "spmd-path")
     os.makedirs(root, exist_ok=True)
-    par_out = os.path.join(root, "parity.json")
-    run_spmd_child("parity", par_out, "the 1x1 arm")
-    with open(par_out) as f:
-        par = json.load(f)
-    if not all(par["equal"].values()):
-        raise AssertionError(f"lockstep path: 1x1 arm states differ: "
-                             f"{par['equal']}")
-    if any(c.get("append_active") != par["expected_launches"]
-           for c in par["launches"].values()):
-        raise AssertionError(f"lockstep path: 1x1 arm launches "
-                             f"{par['launches']}, {par['expected_launches']} "
-                             f"a binding expected")
-    rps, aps = par["rounds_per_s"], par["appends_per_s"]
-    trials = "; ".join(f"{n} " + " ".join(f"{r:.1f}" for r in t)
-                       for n, t in par["trial_rounds_per_s"].items())
-    print(f"lockstep path: 1x1 arm (P={SPMD_PARITY['partitions']} R=1 "
-          f"slots={SPMD_PARITY['slots']} B={SPMD_PARITY['max_batch']}, chain "
-          f"{SPMD_CHAIN}, {SPMD_TRIALS} x {SPMD_LAUNCHES} launches a binding, "
-          f"trials alternated, best kept; a world of one on "
-          f"{par['backend']}): rounds/s local {rps['local']:.1f}, spmd (fused) {rps['spmd']:.1f}, spmd legacy "
-          f"{rps['spmd_legacy']:.1f}; committed appends/s local "
-          f"{aps['local']:.1f}, spmd {aps['spmd']:.1f}, spmd legacy "
-          f"{aps['spmd_legacy']:.1f}; spmd vs local {par['delta_pct']:+.2f}%"
-          f", legacy vs local {par['legacy_delta_pct']:+.2f}%, spmd vs "
-          f"local on the trials' medians {par['median_delta_pct']:+.2f}%; "
-          f"each trial's rounds/s in order: {trials}; the three "
-          f"states byte-identical; collectives {par['collectives']}; "
-          f"append launches {par['launches']} [{card}]", flush=True)
     spec = os.path.join(root, "broker.json")
     broker_out = os.path.join(root, "broker-out.json")
     with open(spec, "w") as f:
@@ -4142,13 +4105,13 @@ def spmd_path(seed, card, workdir) -> dict:
         broker = json.load(f)
     print(f"lockstep path: done in {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]", flush=True)
-    return dict(errs=errs, parity=par, broker=broker)
+    return dict(errs=errs, broker=broker)
 
 
 # ------------------------------------------------ the witness path
 
 WITNESS_LAT = (16, 64)        # awaited single-message producers x messages
-WITNESS_BATCHES = 96          # bulk batches per producer (8 x 96 x 512)
+WITNESS_BATCHES = 32          # bulk batches per producer (was 96)
 
 
 def witness_lint(card) -> dict:
@@ -4275,7 +4238,7 @@ def witness_path(seed, card, workdir) -> dict:
 # here through the CLI: seed 1 on full copies, and seed 11's striped
 # schedule (a crash with a disk flip, then a stripe-holder kill) as a
 # replayed trace file.
-TOOLS_SWEEP = ["--sweep", "3", "--witness"]
+TOOLS_SWEEP = ["--sweep", "2", "--witness"]  # was 3 seeds
 TOOLS_SEED1 = ["--seed", "1", "--phases", "2", "--phase-s", "0.5",
                "--witness"]
 TOOLS_STRIPED = ["--seed", "11", "--brokers", "4", "--phases", "2",
@@ -4375,7 +4338,8 @@ def tools_soak(card, workdir) -> tuple:
             return doc
 
         sweep = soak("sweep", [*TOOLS_SWEEP, "--device", DEV])
-        if sweep["sweep"] != 3 or not sweep["safe"] or sweep["unsafe_seeds"]:
+        if (sweep["sweep"] != int(TOOLS_SWEEP[1]) or not sweep["safe"]
+                or sweep["unsafe_seeds"]):
             raise AssertionError(f"tools path: sweep {sweep['unsafe_seeds']}")
         for v in sweep["runs"]:
             check_soak(v, f"tools path: sweep seed {v['seed']}", True)
@@ -4623,11 +4587,23 @@ def tools_path(seed, card, workdir) -> dict:
 BENCH_DEPTH = "short"
 BENCH_SYNC_LAUNCHES = 16  # sustained launches counted for host syncs
 # The bench's phases that drive each kernel: the legacy append on every
-# engine and DataPlane phase, the packed one in the A/B's packed arms and
-# the e2e topology (fused + packed), the RS kernel in the stripe encode.
-BENCH_NEEDS = {"append_active": ("sustained", "fusion_ab"),
-               "append_active_packed": ("fusion_ab", "e2e"),
-               "gf_matmul": ("stripe_encode",)}
+# engine and DataPlane phase and the parity A/B's bindings, the packed one
+# in the A/B's packed arms, the e2e topology and the host-plane sweep
+# (fused + packed), the RS kernel in the stripe encode and the striped
+# replication bytes.
+BENCH_NEEDS = {"append_active": ("sustained", "fusion_ab", "spmd_parity"),
+               "append_active_packed": ("fusion_ab", "e2e",
+                                        "host_plane_scaling"),
+               "gf_matmul": ("stripe_encode", "repl_bytes")}
+# Phases whose kernels run (also, or only) in child processes, whose
+# launch counters are their own: not counted in this process's figures.
+BENCH_CHILD_LAUNCHES = {
+    "spmd_scaling": "every rank is a process of its own",
+    "consume_fanout": "every broker is a process of its own",
+    "e2e": "the standbys' and the clients' are their processes'",
+    "host_plane_scaling": "the standbys' are their processes'",
+}
+PARITY_SEED = 17  # the seeded payloads of the parity state check
 
 
 def bench_syncs(bench, card) -> dict:
@@ -4710,6 +4686,135 @@ def bench_rails(bench, curve, workdir) -> dict:
     return prior
 
 
+def check_slice_j(bench, result, phases, card) -> None:
+    """The gates of the slice-J phases' results, and one line each."""
+    d = bench.DEPTHS[BENCH_DEPTH]
+    bad = []
+    # The parity A/B: its three bindings launch the legacy append once a
+    # round: a warm-up launch and 4 trials of the depth's launches each,
+    # chains of 8.
+    want = 3 * (1 + 4 * d["parity_launches"]) * 8
+    got = phases["spmd_parity"]["launches"]["append_active"]
+    if got != want:
+        bad.append(f"spmd_parity launched the legacy append {got} times, "
+                   f"{want} expected")
+    par = result["spmd_parity"]
+    if not all(par[k] > 0 for k in ("local_appends_per_sec",
+                                    "spmd_appends_per_sec",
+                                    "spmd_legacy_appends_per_sec")):
+        bad.append(f"spmd_parity rates {par}")
+    sc = result["spmd_scaling"]
+    if [p["devices"] for p in sc["points"]] != [1, 2, 4, 8] or not all(
+            p["appends_per_sec"] > 0 for p in sc["points"]):
+        bad.append(f"spmd_scaling points {sc['points']}")
+    rb = result["repl_bytes_per_acked_byte"]
+    if not (rb["full"]["acked_payload_bytes"]
+            == rb["striped"]["acked_payload_bytes"] == 128000
+            and rb["striped"]["stripe_groups"] > 0):
+        bad.append(f"repl_bytes {rb}")
+    g = result["group_consume"]
+    if not g["count_exact"]:
+        bad.append(f"group_consume {g}")
+    sp = result["split_rebalance"]
+    if not (sp["split_ok"] and sp["readback"] == sp["acked"] > 0):
+        bad.append(f"split_rebalance {sp}")
+    fo = result["consume_fanout"]
+    if not all(a["count_exact"] and (a["follower_served"] > 0
+                                     or not a["follower_reads"])
+               for a in fo["arms"]):
+        bad.append(f"consume_fanout {fo['arms']}")
+    st = result["control_plane_storm"]
+    if any(a["errors"] for a in [st["direct_baseline"]] + st["shapes"]):
+        bad.append(f"control_plane_storm errors {st}")
+    hp = result["host_plane_scaling"]
+    if [a["host_workers"] for a in hp["arms"]] != [1, 2, 4] or not all(
+            a["readback"] == "count-exact" for a in hp["arms"]):
+        bad.append(f"host_plane_scaling {hp['arms']}")
+    if bad:
+        raise AssertionError("bench path: slice-J gates failed: "
+                             + "; ".join(bad))
+    cpu_repl = (659200, 286364, 40)  # the CPU run of both packages
+    print(f"bench path: spmd_parity {json.dumps(par)}; legacy append "
+          f"launches {got} (3 bindings x (1 + 4 x "
+          f"{d['parity_launches']}) launches x chain 8) [{card}]",
+          flush=True)
+    print(f"bench path: spmd_scaling {json.dumps(sc)} [{card}]", flush=True)
+    print(f"bench path: repl_bytes {json.dumps(rb)}; equal to the CPU "
+          f"runs' (full, striped, groups) {cpu_repl}: "
+          f"{(rb['full']['repl_bytes'], rb['striped']['repl_bytes'], rb['striped']['stripe_groups']) == cpu_repl}"
+          f" [{card}]", flush=True)
+    print(f"bench path: group_consume "
+          f"{result['e2e_group_consume_msgs_per_sec']} msgs/s "
+          f"{json.dumps(g)}; slo_convergence "
+          f"{json.dumps(result['slo_convergence'])}; split_rebalance "
+          f"{json.dumps(sp)} [{card}]", flush=True)
+    print(f"bench path: consume_fanout {json.dumps(fo)} [{card}]",
+          flush=True)
+    heads = [{k: a[k] for k in (
+        "members", "membership_events", "raft_proposals",
+        "proposal_collapse", "convergence_ms_p50", "convergence_ms_p99",
+        "leader_heartbeat_rpcs_per_s_before",
+        "leader_heartbeat_rpcs_per_s_after")}
+        for a in [st["direct_baseline"]] + st["shapes"]]
+    print(f"bench path: control_plane_storm (direct, then each shape) "
+          f"{json.dumps(heads)} [{card}]", flush=True)
+    print(f"bench path: host_plane_scaling {json.dumps(hp)} [{card}]",
+          flush=True)
+
+
+def parity_states(bench, card) -> None:
+    """The parity shape's three bindings (local, spmd fused, spmd legacy,
+    on a world of one formed and left here) replay one seeded chained
+    window, the ring wrapping behind staged trims (the bench's parity
+    depth of launches), from fresh states: the three states must end
+    byte-identical (the spmd fused one in named fields)."""
+    import dataclasses
+
+    from ripplemq_tpu_torch.core.encode import build_step_input
+    from ripplemq_tpu_torch.core.state import unfuse_state
+    from ripplemq_tpu_torch.parallel import mesh as mesh_mod
+    from ripplemq_tpu_torch.parallel.engine import make_spmd_fns
+
+    t0 = time.perf_counter()
+    cfg = EngineConfig(**PARITY_SHAPE)
+    launches = bench.DEPTHS[BENCH_DEPTH]["parity_launches"]
+    P, B = cfg.partitions, cfg.max_batch
+    rng = np.random.default_rng(PARITY_SEED)
+    local, alive, quorum, _, put = bench._make(cfg, DEV)
+    one = build_step_input(cfg, appends={
+        p: [rng.integers(0, 256, PAYLOAD_BYTES, dtype=np.uint8).tobytes()] * B
+        for p in range(P)}, leader=0, term=1)
+    inp = bench._stack(one, 8, put)
+    trims = bench._stage_trims(cfg, 8 * B, launches, put)
+    try:
+        mesh = mesh_mod.make_mesh(1, 1, device=DEV)
+        bindings = {"local": local,
+                    "spmd": make_spmd_fns(
+                        dataclasses.replace(cfg, fused_control=True), mesh),
+                    "spmd_legacy": make_spmd_fns(cfg, mesh)}
+        states = {}
+        for name, fns in bindings.items():
+            _, st = bench._sustained_window(fns, inp, alive, quorum, trims,
+                                            1.0)
+            states[name] = unfuse_state(st) if hasattr(st, "ctrl") else st
+        equal = {name: all(torch.equal(getattr(states["local"], f),
+                                       getattr(states[name], f))
+                           for f in states["local"]._fields)
+                 for name in ("spmd", "spmd_legacy")}
+        backend = mesh.backend
+    finally:
+        mesh_mod.shutdown()
+    if not all(equal.values()):
+        raise AssertionError(f"bench path: parity states differ: {equal}")
+    print(f"bench path: parity states (P={P} R=1 slots={cfg.slots} B={B}, "
+          f"chain 8, {launches} launches from fresh states, seeded "
+          f"payloads, a world of one on {backend}): local, spmd fused and "
+          f"spmd legacy byte-identical in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    del states, inp, trims
+    torch.cuda.empty_cache()
+
+
 def bench_path(card, workdir) -> dict:
     """Phase 15 (see the module docstring): `ripplemq_tpu_torch.bench`'s
     ported phases at the bench's widths and BENCH_DEPTH, each phase's
@@ -4740,10 +4845,12 @@ def bench_path(card, workdir) -> dict:
                       "append_active_packed":
                           append_ops.LAUNCHES["append_active_packed"],
                       "gf_matmul": rs_ops.LAUNCHES["gf_matmul"]})
+        note = (f" in this process ({BENCH_CHILD_LAUNCHES[name]}: not "
+                f"counted here)" if name in BENCH_CHILD_LAUNCHES else "")
         print(f"bench path: {name}: {phases[name]['s']:.1f} s, peak device "
               f"memory {phases[name]['peak_gb']:.2f} GB allocated "
               f"({phases[name]['reserved_gb']:.2f} GB reserved), kernel "
-              f"launches {phases[name]['launches']}", flush=True)
+              f"launches {phases[name]['launches']}{note}", flush=True)
 
     result = bench._collect(DEV, BENCH_DEPTH, phase=phase)
     bad = [k for k, _ in bench.HEADLINE_GATES
@@ -4765,6 +4872,8 @@ def bench_path(card, workdir) -> dict:
             if not phases[name]["launches"][kernel]:
                 raise AssertionError(f"bench path: {kernel} never launched "
                                      f"in the {name} phase")
+    check_slice_j(bench, result, phases, card)
+    parity_states(bench, card)
     prior = bench_rails(bench, result["operating_curve"], workdir)
     syncs = bench_syncs(bench, card)
     head = {k: result[k] for k in (
@@ -4905,6 +5014,7 @@ def main() -> int:
         return 0
     if args.bench_only:
         small_append_vs_plain(append_ops, args.seed, bench_engines())
+        scaling_vs_plain(append_ops, args.seed)
         with tempfile.TemporaryDirectory(prefix="chip_smoke-") as workdir:
             bench_path(card, workdir)
         return 0
@@ -4939,12 +5049,10 @@ def main() -> int:
     launches_broker = broker["launches_broker"]
     launches_planes = planes["launches_planes"]
     # The lockstep path: the packed append a rank of the lockstep broker
-    # (the controller first), the legacy one in the 1x1 arm's two spmd
-    # bindings (its local binding is not the spmd path).
-    launches_spmd = {
-        "append_active": sum(spmd["parity"]["launches"][n]["append_active"]
-                             for n in ("spmd", "spmd_legacy")),
-        "append_active_packed": spmd["broker"]["per_rank"]}
+    # (the controller first); its 1x1 parity arm is the bench path's
+    # `spmd_parity` phase, counted in `launches_bench`.
+    launches_spmd = {"append_active": 0,
+                     "append_active_packed": spmd["broker"]["per_rank"]}
     for name, err in spmd["errs"].items():
         errs[name] = max(errs[name], err)
     # The witness seeds' chaos runs moved into the tools path, as soak

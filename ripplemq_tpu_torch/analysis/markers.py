@@ -37,6 +37,10 @@ MODULE_PREFIX = "test_torch_"
 FAST_MODULES = (
     "test_torch_append",           # ~20 s: kernel parity, plain path
     "test_torch_bench",            # ~60 s: bench parity, e2e at 8 partitions
+    "test_torch_bench_cluster",    # ~50 s: repl bytes exact, group, SLO, split
+    "test_torch_bench_procs",      # ~60 s: fan-out, host-plane sweep at 8 parts
+    "test_torch_bench_spmd",       # ~40 s: 1x1 parity states, gloo scaling
+    "test_torch_bench_storm",      # ~60 s: the storm against the reference
     "test_torch_broker",
     "test_torch_chain_settle",
     "test_torch_chaos",            # ~65 s: 3-seed smoke, striped, lockstep

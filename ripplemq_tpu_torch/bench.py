@@ -9,16 +9,21 @@ engine, DataPlane, broker and clients. Run:
     python -m ripplemq_tpu_torch.bench                 # full run, archived
     python -m ripplemq_tpu_torch.bench --compare BENCH_torch_r01.json
     python -m ripplemq_tpu_torch.bench operating_curve [OUT.json]
+    python -m ripplemq_tpu_torch.bench consume_fanout | split_rebalance | control_plane_storm
     python -m ripplemq_tpu_torch.bench --device cpu --out DIR
 
-Prints ONE JSON line: the reference's artifact keys (`value`,
-`vs_baseline`, `shipped_shape_appends_per_sec`, `p50/p99/p999_ack_ms`,
-`round_rtt_ms`, `operating_curve`, `consume_msgs_per_sec`,
-`control_fusion_ab`, `codec_mb_per_sec`, `stripe_encode_mb_per_sec`,
-the `e2e_*` figures, `readback`, ...) less those of the phases not
-ported yet (`RESULT_KEYS` lists them all), plus `card`: the card's name
-and power limit as `nvidia-smi --query-gpu=name,power.limit
---format=csv,noheader` gives them, and the device count.
+Prints ONE JSON line: the reference's artifact keys, in its order
+(`value`, `vs_baseline`, `shipped_shape_appends_per_sec`,
+`p50/p99/p999_ack_ms`, `round_rtt_ms`, `operating_curve`,
+`consume_msgs_per_sec`, `spmd_parity`, `spmd_scaling`,
+`control_fusion_ab`, `codec_mb_per_sec`, `repl_bytes_per_acked_byte`,
+`stripe_encode_mb_per_sec`, `host_plane_scaling`, `slo_convergence`,
+`split_rebalance`, `consume_fanout`, `control_plane_storm`,
+`group_consume`, the `e2e_*` figures, `readback`, ...: `RESULT_KEYS`),
+plus `card`: the card's name and power limit as `nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader` gives them, and the
+device count. The three phase modes run one phase alone and print the
+reference's JSON for it.
 
 What differs from the reference, and why:
 
@@ -39,7 +44,13 @@ What differs from the reference, and why:
 - The e2e standbys start as `python -m ripplemq_tpu_torch.broker`, the
   clients as `python -m ripplemq_tpu_torch.bench _e2e_client SPEC`,
   whose import chain stays torch-free (checked from outside, through
-  `/proc/<pid>/maps`, while they run).
+  `/proc/<pid>/maps`, while they run). The fan-out's brokers are such
+  broker processes too, each with its own CUDA context on the card.
+- A mesh cell is a process: the spmd parity A/B forms a world of one
+  in this process (and leaves it before returning), the scaling curve
+  runs each rank count as a world of that many processes on the one
+  card (gloo: two ranks share the GPU), where the reference forces
+  virtual CPU devices.
 
 torch is imported inside the functions that need it, as the reference
 imports jax: the client subprocess never loads it.
@@ -56,12 +67,16 @@ PAYLOAD = b"bench-payload-" + b"x" * 86  # 100 bytes, recognizable prefix
 
 # Window lengths: "full" are the reference's accelerator depths, "short"
 # its CPU-backend depths (bench.py main: 48 launches x 2 windows, A/B 32,
-# baseline 500), with the e2e phase cut to one 4 s phase.
+# baseline 500, spmd parity 32), with the e2e phase and the host-plane
+# sweep's arms cut to one 4 s phase. Only durations differ: every
+# topology, partition, member, consumer and worker count is the same.
 DEPTHS = {
     "full": dict(eng_launches=480, eng_windows=3, ab_launches=240,
-                 base_launches=2000, e2e_s=12.0, e2e_phases=2),
+                 base_launches=2000, e2e_s=12.0, e2e_phases=2,
+                 parity_launches=240, hp_s=6.0, hp_phases=2),
     "short": dict(eng_launches=48, eng_windows=2, ab_launches=32,
-                  base_launches=500, e2e_s=4.0, e2e_phases=1),
+                  base_launches=500, e2e_s=4.0, e2e_phases=1,
+                  parity_launches=32, hp_s=4.0, hp_phases=1),
 }
 
 
@@ -565,6 +580,171 @@ def _run_curve(cfg, points=None, submitters: int = 16,
         finally:
             dp.stop()
     return curve
+
+
+# The parity A/B's shape: the headline round at R 1 (the reference's
+# `_run_spmd_parity` engine).
+PARITY_SHAPE = dict(
+    partitions=1024, replicas=1, slots=12352, slot_bytes=128,
+    max_batch=256, read_batch=32, max_consumers=64, max_offset_updates=8,
+)
+
+
+def _run_spmd_parity(chain: int = 8, launches: int = 240,
+                     shape: dict | None = None, device=None) -> dict:
+    """Dispatch parity: the spmd binding (`make_spmd_fns` on a 1 x 1 mesh,
+    a world of one) vs the local binding on the SAME device, at the
+    headline round shape with R 1 (`PARITY_SHAPE`, or `shape` over it),
+    measured with the sustained method. The spmd arm runs fused control;
+    the legacy-control spmd binding is the recorded A/B arm. The three
+    bindings alternate over 4 trials and each keeps its best window
+    (additive noise only slows a trial down).
+
+    Every binding's inputs, mask, quorum and trims are staged on the
+    device before the timed windows (a numpy argument would be a host
+    copy a launch). A world this runner formed itself is left before it
+    returns (`mesh.shutdown()`), so no process group outlives it; one the
+    caller had joined is kept."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ripplemq_tpu_torch.core.config import EngineConfig
+    from ripplemq_tpu_torch.parallel import mesh as _mesh
+    from ripplemq_tpu_torch.parallel.engine import make_spmd_fns
+
+    dev = _device(device)
+    cfg = EngineConfig(**{**PARITY_SHAPE, **(shape or {})})
+    cfg_fused = dataclasses.replace(cfg, fused_control=True)
+    B = cfg.max_batch
+    fns_local, alive, quorum, build, put = _make(cfg, dev)
+    one = build(cfg, appends={p: [PAYLOAD] * B
+                              for p in range(cfg.partitions)},
+                leader=0, term=1)
+    adv = chain * B
+    formed = not dist.is_initialized()
+    try:
+        mesh = _mesh.make_mesh(1, 1, device=dev)
+        bindings = {
+            "local": fns_local,
+            "spmd": make_spmd_fns(cfg_fused, mesh),
+            "spmd_legacy": make_spmd_fns(cfg, mesh),
+        }
+        staged = {}
+        for name, fns in bindings.items():
+            staged[name] = (_stack(one, chain, put), alive.clone(),
+                            quorum.clone(),
+                            _stage_trims(cfg, adv, launches, put))
+            _sustained_warmup(fns, *staged[name])
+        best = {name: 0.0 for name in bindings}
+        for _ in range(4):
+            for name, fns in bindings.items():
+                rate, state = _sustained_window(
+                    fns, *staged[name], launches * adv * cfg.partitions)
+                best[name] = max(best[name], rate)
+                del state
+    finally:
+        if formed:
+            _mesh.shutdown()
+    # Signed: positive = the spmd binding is FASTER than the local one.
+    delta = (best["spmd"] - best["local"]) / best["local"]
+    fused_delta = (best["spmd"] - best["spmd_legacy"]) / best["spmd_legacy"]
+    return {
+        "local_appends_per_sec": round(best["local"], 1),
+        "spmd_appends_per_sec": round(best["spmd"], 1),
+        "spmd_binding": "fused_control",
+        "spmd_legacy_appends_per_sec": round(best["spmd_legacy"], 1),
+        "fused_vs_legacy_spmd_delta_pct": round(100 * fused_delta, 2),
+        "delta_pct": round(100 * delta, 2),
+    }
+
+
+def _run_spmd_scaling(device_counts: tuple[int, ...] = (1, 2, 4, 8),
+                      chain: int = 8, launches: int = 24, windows: int = 2,
+                      device=None, timeout_s: float = 600.0) -> dict:
+    """Per-rank-count scaling curve of the fused spmd binding: sustained
+    committed appends/s with partitions sharded over the "part" axis of a
+    1 x n mesh, at each n of `device_counts`. Each count is one world of n
+    processes (`python -m ripplemq_tpu_torch.profiles.spmd_scaling
+    --inner n --rank r`), every rank on `device` (CUDA: the one card,
+    where two ranks share a GPU and the world runs gloo), each running the
+    same sustained loop; rank 0 verifies the ring tail and reports
+    (`profiles/spmd_scaling.py` `run_inner`).
+
+    The ranks share one card's silicon and one host, so the curve prices
+    what sharding costs (a gathered output a round, dispatch per rank),
+    not what added GPUs buy. A world that outlives `timeout_s`, or in
+    which any rank fails, is killed whole and the phase raises."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+
+    dev = _device(device)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ,
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.setdefault("OMP_NUM_THREADS", "1")  # n ranks share the host's cores
+    points = []
+    for n in device_counts:
+        tmp = tempfile.mkdtemp(prefix=f"spmd-scaling-{n}-")
+        procs, logs = [], []
+        try:
+            for rank in range(n):
+                logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w+"))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "ripplemq_tpu_torch.profiles.spmd_scaling",
+                     "--inner", str(n), "--rank", str(rank),
+                     "--store", os.path.join(tmp, "store"),
+                     "--chain", str(chain), "--launches", str(launches),
+                     "--windows", str(windows), "--device", dev.type],
+                    env=env, cwd=root, stdout=logs[-1],
+                    stderr=subprocess.STDOUT, text=True))
+            deadline = time.monotonic() + timeout_s
+            while any(p.poll() is None for p in procs):
+                failed = [p for p in procs if p.poll() not in (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+            rcs = [p.poll() for p in procs]
+            if any(rc != 0 for rc in rcs):
+                tails = []
+                for rank, f in enumerate(logs):
+                    f.seek(0)
+                    tails.append(f"rank {rank} rc {rcs[rank]}: "
+                                 f"{f.read()[-1500:]}")
+                raise RuntimeError(
+                    f"spmd_scaling ranks={n} failed or outlived "
+                    f"{timeout_s} s: " + "\n".join(tails))
+            logs[0].seek(0)
+            line = [ln for ln in logs[0].read().splitlines()
+                    if ln.startswith("{")][-1]
+            points.append(json.loads(line))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+            for f in logs:
+                f.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+    base = points[0]["appends_per_sec"]
+    where = ("the one card" if dev.type == "cuda" else f"the {dev.type}")
+    return {
+        "config": (f"P={points[0]['partitions']} R=1 "
+                   f"B={points[0]['max_batch']} chain={chain} sustained "
+                   f"fused-spmd, partitions sharded over 'part'"),
+        "method": (f"one world of n processes per count, gloo ranks "
+                   f"sharing {where} (a world of one: no collective); "
+                   f"prices sharding overhead, not added silicon"),
+        "points": points,
+        "vs_1dev": {
+            str(p["devices"]): round(p["appends_per_sec"] / base, 3)
+            for p in points
+        },
+    }
 
 
 def e2e_raw_config(ports: list[int], partitions: int = 1024,
@@ -1102,6 +1282,708 @@ def _run_e2e(duration_s: float = 12.0, n_brokers: int = 3,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _run_host_plane_scaling(worker_counts: tuple[int, ...] = (1, 2, 4),
+                            duration_s: float = 6.0, phases: int = 2,
+                            device=None, **e2e_kw) -> dict:
+    """Same-host worker-count sweep of the multi-core host plane: each arm
+    runs the whole e2e topology (`_run_e2e`: standby broker processes,
+    client processes, TCP) with `host_workers` worker processes a broker,
+    the same best-of-`phases` method and count-exact readback, in one run
+    so the arms share their noise floor. `scaling_x` = best / workers-1;
+    `host_cores` is the parallelism the host offers. `e2e_kw` passes
+    further `_run_e2e` arguments (a smaller topology in tests)."""
+    import os
+
+    dev = _device(device)
+    arms = []
+    for w in worker_counts:
+        r = _run_e2e(duration_s=duration_s, phases=phases, host_workers=w,
+                     device=dev, **e2e_kw)
+        arms.append({
+            "host_workers": w,
+            "appends_per_sec": r["e2e_appends_per_sec"],
+            "consume_msgs_per_sec": r["e2e_consume_msgs_per_sec"],
+            "acked": r["e2e_acked"],
+            "readback": r["e2e_consume_verified"],
+            "cpu_decomposition": r["e2e_cpu_decomposition"],
+        })
+    base = arms[0]["appends_per_sec"]
+    best = max(arms, key=lambda a: a["appends_per_sec"])
+    return {
+        "arms": arms,
+        "baseline_appends_per_sec": base,
+        "best_workers": best["host_workers"],
+        "best_appends_per_sec": best["appends_per_sec"],
+        "scaling_x": round(best["appends_per_sec"] / base, 2),
+        "host_cores": os.cpu_count(),
+    }
+
+
+def _run_group_consume(n_groups: int = 3, members: int = 2,
+                       partitions: int = 4, n_msgs: int = 600,
+                       device=None) -> dict:
+    """Multi-group drain: `n_groups` consumer groups of `members`
+    GroupConsumer members each drain the same produced topic through the
+    group coordinator's shared offsets, on an in-proc cluster whose
+    brokers run on `device`. COUNT-EXACT per group: a group ending with
+    anything but exactly `n_msgs` delivered fails the phase.
+
+    Unlike the reference, no generation change may overtake a commit: a
+    commit that one overtakes lands and is answered `fenced_generation`
+    (the server's documented at-most-once boundary), so the member drops
+    its batch for good and the reference's drain stalls one batch short
+    of count-exact (3 of 12 reference runs on a CPU host, 2 of 12 of the
+    port's before these guards). So every member joins, then waits until
+    every broker's replicated view holds its whole group at one
+    generation (`_settle_group`), before any member polls; and sessions
+    last 30 s, as in the storm, so that a loaded host's late heartbeat
+    relay cannot evict a member mid-drain. The gate then measures the
+    shared-offset path."""
+    import threading
+
+    from ripplemq_tpu_torch.chaos.cluster import (
+        InProcCluster,
+        make_cluster_config,
+    )
+    from ripplemq_tpu_torch.client import GroupConsumer, ProducerClient
+    from ripplemq_tpu_torch.metadata.models import Topic
+
+    dev = _device(device)
+    counts = {g: 0 for g in range(n_groups)}
+    lock = threading.Lock()
+    stop = threading.Event()
+    joined = threading.Barrier(n_groups * members)
+
+    def member(gi: int, mi: int) -> None:
+        gc = GroupConsumer(
+            bootstrap, f"bg{gi}", topics=["gbench"], member_id=f"m{mi}",
+            transport=cluster.client(f"gbench-{gi}-{mi}"),
+            heartbeat_s=0.5, rpc_timeout_s=10.0)
+        try:
+            gc.join()
+            joined.wait(timeout=60)  # every member in: no later rebalance
+            _settle_group(cluster, bootstrap, f"bg{gi}", f"m{mi}",
+                          [f"m{m}" for m in range(members)])
+            gc.heartbeat(force=True)
+            while not stop.is_set():
+                _, msgs = gc.poll(max_messages=64)
+                if msgs:
+                    with lock:
+                        counts[gi] += len(msgs)
+                with lock:
+                    if counts[gi] >= n_msgs:
+                        return
+        finally:
+            gc.close()
+
+    config = make_cluster_config(
+        3, topics=(Topic("gbench", partitions, 3),), engine=None,
+        group_session_timeout_s=30.0)
+    with InProcCluster(config, device=dev) as cluster:
+        cluster.wait_for_leaders()
+        bootstrap = [b.address for b in config.brokers]
+        producer = ProducerClient(
+            bootstrap, transport=cluster.client("gbench-p"),
+            rpc_timeout_s=10.0)
+        per_part = n_msgs // partitions
+        n_msgs = per_part * partitions
+        B = config.engine.max_batch
+        for pid in range(partitions):
+            payloads = [b"g-%d-%06d" % (pid, i) for i in range(per_part)]
+            for i in range(0, per_part, B):
+                producer.produce_batch("gbench", payloads[i:i + B],
+                                       partition=pid)
+        producer.close()
+
+        threads = [threading.Thread(target=member, args=(gi, mi),
+                                    daemon=True,
+                                    name=f"bench-group-{gi}-{mi}")
+                   for gi in range(n_groups) for mi in range(members)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            with lock:
+                if all(v >= n_msgs for v in counts.values()):
+                    break
+            time.sleep(0.05)
+        elapsed = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+        exact = all(v == n_msgs for v in counts.values())
+        if not exact:
+            raise AssertionError(
+                f"group drain not count-exact: wanted {n_msgs}/group, "
+                f"got {counts} (duplicates or loss across the shared-"
+                f"offset path)")
+        total = sum(counts.values())
+        return {
+            "e2e_group_consume_msgs_per_sec": round(total / elapsed, 1),
+            "group_consume": {
+                "groups": n_groups, "members_per_group": members,
+                "partitions": partitions, "msgs_per_group": n_msgs,
+                "elapsed_s": round(elapsed, 3), "count_exact": exact,
+            },
+        }
+
+
+def _settle_group(cluster, bootstrap: list[str], group: str, member: str,
+                  members: list[str], timeout_s: float = 30.0) -> None:
+    """Wait until every broker's replicated view of `group` holds exactly
+    `members` at one generation (a `group.heartbeat` answered locally by
+    each broker): from then on no commit of the group can meet a
+    generation that changes between its fence check and its re-check."""
+    probe = cluster.client(f"settle-{group}-{member}")
+    req = {"type": "group.heartbeat", "group": group, "member": member}
+    deadline = time.monotonic() + timeout_s
+    views: list = []
+    while time.monotonic() < deadline:
+        views = [probe.call(addr, req, timeout=10.0) for addr in bootstrap]
+        if (all(v.get("ok") and v.get("members") == sorted(members)
+                for v in views)
+                and len({v["generation"] for v in views}) == 1):
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"group {group} never settled on every broker: "
+                         f"{views}")
+
+
+def _run_control_plane_storm(
+    shapes: tuple[tuple[int, int, int], ...] = (
+        (10, 10, 4),      # 100 members, also run as the direct baseline
+        (40, 10, 8),      # 400 members
+        (100, 10, 16),    # 1000 members / 100 groups: the headline shape
+    ),
+    churn_rounds: int = 2,
+    churn_frac: float = 0.2,
+    beat_window_s: float = 1.5,
+    device=None,
+) -> dict:
+    """Control-plane volume sweep: group count x churn x tenant count,
+    driving the membership RPC surface of a 3-broker in-proc cluster
+    (brokers on `device`; no payload moves), one arm a shape
+    (`_storm_arm`). Read from the brokers' admin.stats `control_plane`
+    blocks (`_cp_stats`): raft proposals per membership event (waves; the
+    direct arm at `meta_batch_s` 0, on the first shape, is 1 a event by
+    construction), leader heartbeat RPCs/s before (the member beats) and
+    after (the relayed `group.beats` frames), and the convergence p50/p99
+    of a membership RPC."""
+    dev = _device(device)
+    kw = dict(churn_rounds=churn_rounds, churn_frac=churn_frac,
+              beat_window_s=beat_window_s, device=dev)
+    out: dict = {"shapes": []}
+    g0, m0, t0_ = shapes[0]
+    out["direct_baseline"] = _storm_arm(g0, m0, t0_, meta_batch_s=0.0, **kw)
+    for groups, members, tenants in shapes:
+        out["shapes"].append(_storm_arm(groups, members, tenants,
+                                        meta_batch_s=0.05, **kw))
+    out["headline"] = out["shapes"][-1]
+    return {"control_plane_storm": out}
+
+
+def _storm_arm(groups: int, members: int, tenants: int,
+               meta_batch_s: float, churn_rounds: int, churn_frac: float,
+               beat_window_s: float, device) -> dict:
+    """One shape of the storm (the reference's `one_arm`): `groups x
+    members` group.join and `tenants` producer.register RPCs through a
+    pool of up to 128 workers, then `churn_rounds` rounds of leave+rejoin
+    over `churn_frac` of the members (sampled by `random.Random(1234)`,
+    the reference's stream), then a `beat_window_s` heartbeat window with
+    every member beating."""
+    import queue
+    import random
+    import threading
+
+    from ripplemq_tpu_torch.chaos.cluster import (
+        InProcCluster,
+        make_cluster_config,
+    )
+    from ripplemq_tpu_torch.metadata.models import Topic
+
+    n_workers = min(128, groups * members)
+    roster = [(gi, mi) for gi in range(groups) for mi in range(members)]
+    lat_ms: list[float] = []
+    lat_lock = threading.Lock()
+    work: queue.Queue = queue.Queue()
+    errs: list[str] = []
+    stop = threading.Event()
+    beat_counts = [0] * n_workers
+
+    def worker(w: int) -> None:
+        while True:
+            req = work.get()
+            if req is None:
+                work.task_done()
+                return
+            t0 = time.perf_counter()
+            try:
+                resp = clients[w].call(addrs[w % len(addrs)], req,
+                                       timeout=15.0)
+                if resp.get("ok"):
+                    with lat_lock:
+                        lat_ms.append((time.perf_counter() - t0) * 1e3)
+                else:
+                    errs.append(str(resp.get("error")))
+            except Exception as e:
+                errs.append(f"{type(e).__name__}: {e}")
+            finally:
+                work.task_done()
+
+    def beater(w: int) -> None:
+        mine = roster[w::n_workers]
+        while not stop.is_set():
+            for gi, mi in mine:
+                if stop.is_set():
+                    return
+                clients[w].call(
+                    addrs[(w + gi) % len(addrs)],
+                    {"type": "group.heartbeat", "group": f"sg{gi}",
+                     "member": f"m{mi}"},
+                    timeout=15.0)
+                beat_counts[w] += 1
+
+    def run_events(events: list[dict]) -> None:
+        for ev in events:
+            work.put(ev)
+        work.join()
+
+    config = make_cluster_config(
+        3, topics=(Topic("storm", 8, 3),), engine=None, rpc_timeout_s=10.0,
+        # Nobody beats during the join/churn storm: keep sessions from
+        # lapsing so no eviction waves pollute the counters.
+        group_session_timeout_s=30.0, meta_batch_s=meta_batch_s)
+    with InProcCluster(config, device=device) as cluster:
+        cluster.wait_for_leaders()
+        addrs = [b.address for b in config.brokers]
+        clients = [cluster.client(f"storm-w{w}") for w in range(n_workers)]
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True,
+                                    name=f"bench-storm-{w}")
+                   for w in range(n_workers)]
+        for t in threads:
+            t.start()
+
+        # The join storm: every member and every tenant pid.
+        joins = [{"type": "group.join", "group": f"sg{gi}",
+                  "member": f"m{mi}", "topics": ["storm"]}
+                 for gi, mi in roster]
+        regs = [{"type": "producer.register", "name": f"t{k}/storm"}
+                for k in range(tenants)]
+        n_events = 0
+        before = len(lat_ms)
+        run_events(joins + regs)
+        n_events += len(joins) + len(regs)
+
+        # Churn rounds: churn_frac of the members leave and rejoin.
+        rng = random.Random(1234)
+        for _ in range(churn_rounds):
+            sample = rng.sample(roster, max(1, int(len(roster) * churn_frac)))
+            leaves = [{"type": "group.leave", "group": f"sg{gi}",
+                       "member": f"m{mi}"} for gi, mi in sample]
+            run_events(leaves)
+            rejoins = [{"type": "group.join", "group": f"sg{gi}",
+                        "member": f"m{mi}", "topics": ["storm"]}
+                       for gi, mi in sample]
+            run_events(rejoins)
+            n_events += len(leaves) + len(rejoins)
+        assert len(lat_ms) - before + len(errs) >= n_events * 0.95, (
+            f"storm lost events: {len(lat_ms)} acks, errors {errs[:5]}")
+
+        # The heartbeat window: every member beats continuously.
+        hb_before = _cp_stats(cluster, addrs)
+        beaters = [threading.Thread(target=beater, args=(w,), daemon=True,
+                                    name=f"bench-storm-beat-{w}")
+                   for w in range(n_workers)]
+        t0 = time.perf_counter()
+        for t in beaters:
+            t.start()
+        time.sleep(beat_window_s)
+        stop.set()
+        for t in beaters:
+            t.join(timeout=10)
+        # Let the last relay frames flush before reading counters.
+        time.sleep(config.heartbeat_relay_s * 2 + 0.1)
+        window = time.perf_counter() - t0
+        stats = _cp_stats(cluster, addrs)
+
+        for _ in threads:
+            work.put(None)
+        for t in threads:
+            t.join(timeout=5)
+
+        # beat_frames counts FRAMES (one a broker a relay interval: the
+        # leader's RPC load); beats_relayed the member stamps.
+        frames = stats["beat_frames"] - hb_before["beat_frames"]
+        proposals = stats["waves"] if meta_batch_s > 0 else n_events
+        return {
+            "groups": groups, "members": groups * members,
+            "tenants": tenants,
+            "membership_events": n_events,
+            "raft_proposals": proposals,
+            "proposals_per_event": round(proposals / n_events, 4),
+            "proposal_collapse": round(n_events / max(1, proposals), 1),
+            "wave_size_hist": stats["wave_size_hist"],
+            "convergence_ms_p50": round(float(np.percentile(lat_ms, 50)), 2),
+            "convergence_ms_p99": round(float(np.percentile(lat_ms, 99)), 2),
+            "leader_heartbeat_rpcs_per_s_before": round(
+                sum(beat_counts) / window, 1),
+            "leader_heartbeat_rpcs_per_s_after": round(frames / window, 1),
+            "errors": len(errs),
+        }
+
+
+def _cp_stats(cluster, addrs: list[str]) -> dict:
+    """Sum the `control_plane` admin.stats block across brokers (waves
+    and events count where the proposing broker coalesced them; beat
+    frames where the leader ingested them)."""
+    probe = cluster.client("storm-stats")
+    total = {"waves": 0, "wave_events": 0, "beats_relayed": 0,
+             "beat_frames": 0, "heartbeats_local": 0,
+             "wave_size_hist": {}}
+    for addr in addrs:
+        try:
+            st = probe.call(addr, {"type": "admin.stats"}, timeout=5.0)
+        except Exception:
+            continue
+        cp = st.get("control_plane") or {}
+        for key in ("waves", "wave_events", "beats_relayed", "beat_frames",
+                    "heartbeats_local"):
+            total[key] += int(cp.get(key, 0))
+        for k, v in (cp.get("wave_size_hist") or {}).items():
+            total["wave_size_hist"][k] = (
+                total["wave_size_hist"].get(k, 0) + int(v))
+    return total
+
+
+def _run_consume_fanout(consumer_counts: tuple[int, ...] = (4, 16),
+                        partitions: int = 2, n_msgs: int = 480,
+                        device=None) -> dict:
+    """Fan-out consume A/B: C independent consumers each drain the SAME
+    pre-produced log end to end, with follower reads OFF vs ON, over the
+    consumer counts, each arm on a fresh 3-broker process cluster
+    (`_fanout_arm`). COUNT-EXACT per arm; ON arms report
+    `follower_served`, the deliveries the followers answered (an ON arm
+    the leader quietly absorbed would otherwise read as a null A/B)."""
+    import os
+
+    dev = _device(device)
+    per_part = n_msgs // partitions
+    total_msgs = per_part * partitions
+    arms = [_fanout_arm(c, f, partitions, per_part, dev)
+            for c in consumer_counts for f in (False, True)]
+    by_count = {}
+    for c in consumer_counts:
+        off, on = (next(a for a in arms if a["consumers"] == c
+                        and a["follower_reads"] == f) for f in (False, True))
+        by_count[str(c)] = round(on["msgs_per_sec"] / off["msgs_per_sec"], 2)
+    return {
+        "arms": arms,
+        "msgs_per_consumer": total_msgs,
+        "partitions": partitions,
+        "speedup_on_vs_off": by_count,
+        "host_cores": os.cpu_count(),
+    }
+
+
+def _fanout_arm(consumers: int, follower: bool, partitions: int,
+                per_part: int, device) -> dict:
+    """One fan-out arm (the reference's `one_arm`): boot a 3-broker
+    `ProcCluster` (one `python -m ripplemq_tpu_torch.broker --device <d>`
+    process a broker, each with its own CUDA context on the one card),
+    produce `per_part` messages to each partition once, wait 1.5 s for
+    the replication floors to land on the standbys, then run `consumers`
+    consumers, each its own group re-reading the whole topic: every one
+    must read exactly every message."""
+    import shutil
+    import tempfile
+    import threading
+
+    from ripplemq_tpu_torch.chaos.proc_cluster import (
+        ProcCluster,
+        free_ports,
+        make_proc_cluster_config,
+    )
+    from ripplemq_tpu_torch.client import ConsumerClient, ProducerClient
+    from ripplemq_tpu_torch.metadata.models import Topic
+
+    total_msgs = per_part * partitions
+    counts = [0] * consumers
+    served = [0] * consumers
+    fail: list[str] = []
+
+    def member(ci: int) -> None:
+        cc = ConsumerClient(
+            bootstrap, f"fan-{ci}", transport=cluster.client(f"fan-{ci}"),
+            rpc_timeout_s=10.0, follower_reads=follower)
+        try:
+            empties = 0
+            while counts[ci] < total_msgs and empties < 200:
+                msgs = cc.consume("fanout", max_messages=16)
+                if msgs:
+                    counts[ci] += len(msgs)
+                    empties = 0
+                else:
+                    empties += 1
+                    time.sleep(0.01)
+            served[ci] = cc.follower_served
+        except Exception as e:
+            fail.append(f"consumer {ci}: {type(e).__name__}: {e}")
+        finally:
+            cc.close()
+
+    tmp = tempfile.mkdtemp(prefix="fanout-")
+    config = make_proc_cluster_config(
+        free_ports(3), topics=(Topic("fanout", partitions, 3),),
+        follower_reads=follower)
+    cluster = ProcCluster(config=config, data_dir=tmp, device=device.type)
+    try:
+        cluster.start()
+        cluster.wait_for_leaders()
+        deadline = time.time() + 120
+        while time.time() < deadline and not cluster.controller_ready():
+            time.sleep(0.1)
+        bootstrap = [b.address for b in config.brokers]
+        producer = ProducerClient(
+            bootstrap, transport=cluster.client("fanout-p"),
+            rpc_timeout_s=10.0)
+        B = config.engine.max_batch
+        for pid in range(partitions):
+            payloads = [b"f-%d-%06d" % (pid, i) for i in range(per_part)]
+            for i in range(0, per_part, B):
+                producer.produce_batch("fanout", payloads[i:i + B],
+                                       partition=pid)
+        producer.close()
+        # Follower serving is gated on the replicated floor: an arm
+        # racing it would measure leader fallbacks, not the plane.
+        time.sleep(1.5)
+        threads = [threading.Thread(target=member, args=(ci,), daemon=True,
+                                    name=f"bench-fanout-{ci}")
+                   for ci in range(consumers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        elapsed = time.perf_counter() - t0
+        if fail or any(c != total_msgs for c in counts):
+            raise AssertionError(
+                f"fan-out arm (consumers={consumers}, follower={follower}) "
+                f"not count-exact: wanted {total_msgs}/consumer, got "
+                f"{counts}; errors: {fail}")
+        return {
+            "consumers": consumers,
+            "follower_reads": follower,
+            "msgs_per_sec": round(consumers * total_msgs / elapsed, 1),
+            "elapsed_s": round(elapsed, 3),
+            "follower_served": sum(served),
+            "count_exact": True,
+        }
+    finally:
+        cluster.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_slo_convergence(target_ms: float = 25.0, light_s: float = 1.5,
+                         heavy_s: float = 10.0, device=None) -> dict:
+    """SLO autopilot time-to-SLO after a STEP-LOAD change: a 1-broker
+    in-proc cluster (on `device`) runs with the control loop engaged
+    (`slo_p99_ack_ms` = `target_ms`, 0.1 s ticks), a light phase of
+    `light_s` sets the operating point, then the offered load steps to a
+    saturating pipelined stream for `heavy_s`. Read from the controller's
+    own tick history (admin.stats `slo`): the wall-clock from the step to
+    the first post-step window back inside the target, and whether the
+    step breached it at all (a measurement, not an assertion)."""
+    from ripplemq_tpu_torch.chaos.cluster import (
+        InProcCluster,
+        make_cluster_config,
+    )
+    from ripplemq_tpu_torch.client import ProducerClient
+    from ripplemq_tpu_torch.metadata.models import Topic
+
+    dev = _device(device)
+    config = make_cluster_config(
+        1, topics=(Topic("slobench", 1, 1),), standby_count=0,
+        slo_p99_ack_ms=target_ms, slo_tick_s=0.1, slo_chain_depth_max=4)
+    with InProcCluster(config, device=dev) as cluster:
+        cluster.wait_for_leaders()
+        bootstrap = [b.address for b in config.brokers]
+        producer = ProducerClient(
+            bootstrap, transport=cluster.client("slobench-p"),
+            rpc_timeout_s=10.0)
+        admin = cluster.client("slobench-admin")
+        addr = config.brokers[0].address
+        payload = b"s" * 16  # inside the small engine's payload bytes
+        try:
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < light_s:
+                producer.produce("slobench", payload, partition=0)
+                time.sleep(0.005)
+            t_step = time.time()
+            waiters = []
+            deadline = time.monotonic() + heavy_s
+            while time.monotonic() < deadline:
+                # The saturating step: a window of async batches deep
+                # enough to queue the settle pipeline. Once the shed
+                # machine engages, this quota-less producer draws
+                # `overloaded:` refusals; the phase keeps offering load
+                # (that is the measured scenario).
+                try:
+                    while len(waiters) < 64:
+                        waiters.append(producer.produce_batch_async(
+                            "slobench", [payload] * 16, partition=0))
+                    waiters.pop(0)()
+                except Exception:
+                    time.sleep(0.005)
+            for w in waiters:
+                try:
+                    w()
+                except Exception:
+                    pass
+            st = admin.call(addr, {"type": "admin.stats"}, timeout=10.0)
+        finally:
+            producer.close()
+        slo = st["slo"]
+        hist = [row for row in slo["tick_history"] if row[0] >= t_step]
+        breach_t = next((row[0] for row in hist if row[2] == 0.0), None)
+        time_to_slo = None
+        if breach_t is not None:
+            rec_t = next((row[0] for row in hist
+                          if row[0] > breach_t and row[2] == 1.0), None)
+            if rec_t is not None:
+                time_to_slo = round(rec_t - t_step, 3)
+        return {
+            "target_p99_ms": target_ms,
+            "breached_after_step": breach_t is not None,
+            "time_to_slo_s": time_to_slo,
+            "adjustments": slo["adjustments"],
+            "final_knobs": slo["knobs"],
+            "final_p99_ms": slo["p99_ms"],
+            "meeting_slo": slo["meeting_slo"],
+        }
+
+
+def _run_split_rebalance(warm_s: float = 1.5, tail_s: float = 1.5,
+                         bucket_s: float = 0.25, device=None) -> dict:
+    """Elastic-partition rebalance cost: a 3-broker in-proc cluster (on
+    `device`) under sustained KEYED produce load splits partition 0
+    online. Reports the begin→cutover interval from the brokers' own
+    flight recorders (admin.trace), the wall-clock until every
+    assignment is active again, and the throughput dip (the worst
+    `bucket_s` ack-rate bucket of the `tail_s` after the split vs the
+    pre-split average). Count-exact: every acked produce is read back from
+    the final logs (`chaos.harness._drain_partition`, every partition,
+    the child included); a lost write fails the phase."""
+    import threading
+
+    from ripplemq_tpu_torch.chaos.cluster import (
+        InProcCluster,
+        make_cluster_config,
+    )
+    from ripplemq_tpu_torch.chaos.harness import _drain_partition
+    from ripplemq_tpu_torch.client import ProducerClient
+    from ripplemq_tpu_torch.metadata.models import Topic
+
+    dev = _device(device)
+    topic = "splitbench"
+    acks: list[float] = []  # ack wall-clock stamps
+    stop = threading.Event()
+
+    def offered() -> None:
+        i = 0
+        while not stop.is_set():
+            try:
+                producer.produce(topic, f"sb:{i}".encode(),
+                                 key=f"k{i % 64:02d}".encode())
+            except Exception:
+                continue  # refusals/reroutes retry as new payloads
+            acks.append(time.time())
+            i += 1
+
+    config = make_cluster_config(
+        3, topics=(Topic(topic, 2, 3),), spare_slots=1,
+        split_handoff_timeout_s=5.0)
+    with InProcCluster(config, device=dev) as cluster:
+        cluster.wait_for_leaders()
+        bootstrap = [b.address for b in config.brokers]
+        producer = ProducerClient(
+            bootstrap, transport=cluster.client("splitbench-p"),
+            metadata_refresh_s=0.2, rpc_timeout_s=5.0)
+        t = threading.Thread(target=offered, daemon=True,
+                             name="bench-split-producer")
+        t.start()
+        try:
+            time.sleep(warm_s)
+            t_split = time.time()
+            resp = cluster.admin_split(topic, 0)
+            rebalanced_at = None
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                view = cluster.topic_view(topic)
+                if view and all(a.state == "active" for a in view):
+                    rebalanced_at = time.time()
+                    break
+                time.sleep(0.01)
+            time.sleep(tail_s)
+        finally:
+            stop.set()
+            t.join(timeout=10)
+            producer.close()
+        n_acked = len(acks)
+        pids = sorted(a.partition_id for a in cluster.topic_view(topic))
+        readback = sum(
+            len(_drain_partition(cluster, topic, pid, tag=f"sb-{pid}"))
+            for pid in pids)
+        admin = cluster.client("splitbench-a")
+        cut_s = None
+        forwarded = fences = 0
+        for b in config.brokers:
+            try:
+                st = admin.call(b.address, {"type": "admin.stats"},
+                                timeout=10.0)
+                tr = admin.call(b.address, {"type": "admin.trace"},
+                                timeout=10.0)
+            except Exception:
+                continue
+            rc = st.get("reconfig") or {}
+            forwarded += int(rc.get("forwarded_writes") or 0)
+            fences += int(rc.get("fence_refusals") or 0)
+            evs = {e["type"]: e["t"] for e in tr.get("trace", [])
+                   if e.get("type") in ("split_begin", "split_cutover")}
+            if "split_begin" in evs and "split_cutover" in evs:
+                d = evs["split_cutover"] - evs["split_begin"]
+                if d >= 0 and (cut_s is None or d < cut_s):
+                    cut_s = round(d, 3)
+        pre = [a for a in acks if a < t_split]
+        pre_rate = round(len(pre) / max(warm_s, 1e-6), 1)
+        buckets: dict[int, int] = {}
+        for a in acks:
+            if a >= t_split:
+                k = int((a - t_split) / bucket_s)
+                buckets[k] = buckets.get(k, 0) + 1
+        n_buckets = max(1, int(tail_s / bucket_s))
+        worst = min((buckets.get(i, 0) for i in range(n_buckets)),
+                    default=0) / bucket_s
+        if readback != n_acked:
+            raise AssertionError(
+                f"split_rebalance readback mismatch: acked {n_acked}, "
+                f"read back {readback} (partitions {pids})")
+        return {
+            "split_ok": bool(resp.get("ok")),
+            "time_to_rebalance_s": (
+                None if rebalanced_at is None
+                else round(rebalanced_at - t_split, 3)),
+            "begin_to_cutover_s": cut_s,
+            "pre_split_acks_per_sec": pre_rate,
+            "worst_post_split_bucket_acks_per_sec": round(worst, 1),
+            "dip_ratio": (round(worst / pre_rate, 3) if pre_rate else None),
+            "forwarded_writes": forwarded,
+            "fence_refusals": fences,
+            "acked": n_acked,
+            "readback": readback,
+        }
+
+
 def _run_stripe_encode(mb: int = 4, reps: int = 3, device=None) -> float:
     """stripe_encode_mb_per_sec: GF(2⁸) RS(3,2) group-encode throughput at
     the sender's group-commit blob shape (one gf_matmul per blob: the
@@ -1120,6 +2002,98 @@ def _run_stripe_encode(mb: int = 4, reps: int = 3, device=None) -> float:
         dt = time.perf_counter() - t0
         best = max(best, nbytes / dt / 1e6)
     return round(best, 2)
+
+
+# The replication-bytes clusters' engine past `small_engine`'s defaults
+# (1 partition x 3 replicas): 512-byte rows for 400-byte payloads.
+REPL_ENGINE = dict(slots=1024, slot_bytes=512, max_batch=16)
+
+
+def _run_repl_bytes(n_batches: int = 40, batch: int = 8,
+                    payload_bytes: int = 400, device=None) -> dict:
+    """Replication bytes per acked payload byte in BOTH replication
+    modes, on a 5-broker in-proc cluster (brokers on `device`: the
+    controller and 4 standbys, where full copies ship R-1 = 4 copies and
+    striping (k+m)/k). Bytes are the modes' own acked-stream counters
+    (`repl.bytes` / `stripes.bytes`, read from the controller's
+    admin.metrics until they stop moving); acked bytes are counted
+    client-side. Both numerators carry the same overheads (slot padding,
+    pid/sequence and offset records, stripe frame headers). The striped
+    arm encodes every stripe group with `gf_matmul`."""
+    import shutil
+    import tempfile
+
+    from ripplemq_tpu_torch.chaos.cluster import (
+        InProcCluster,
+        make_cluster_config,
+        small_engine,
+    )
+    from ripplemq_tpu_torch.client import ProducerClient
+    from ripplemq_tpu_torch.metadata.models import Topic
+
+    dev = _device(device)
+    out: dict = {}
+    for mode in ("full", "striped"):
+        tmp = tempfile.mkdtemp(prefix=f"replbytes-{mode}-")
+        config = make_cluster_config(
+            n_brokers=5, topics=(Topic("rb", 1, 3),),
+            engine=small_engine(1, 3, **REPL_ENGINE),
+            replication=mode, standby_count=4)
+        cluster = InProcCluster(config, data_dir=tmp, device=dev)
+        counters = {}
+        try:
+            cluster.start()
+            cluster.wait_for_leaders()
+            deadline = time.time() + 60
+            ctrl = None
+            while time.time() < deadline:
+                st = cluster.client("rb").call(
+                    cluster.broker_addr(0), {"type": "admin.stats"},
+                    timeout=5.0)
+                if len(st["controller"]["standbys"]) >= 4:
+                    ctrl = st["controller"]["id"]
+                    break
+                time.sleep(0.1)
+            assert ctrl is not None, "standby set never reached 4"
+            prod = ProducerClient(
+                [b.address for b in config.brokers],
+                transport=cluster.client("rb-prod"), metadata_refresh_s=0.5)
+            acked = 0
+            for i in range(n_batches):
+                prod.produce_batch(
+                    "rb", [bytes([i & 0xFF]) * payload_bytes] * batch,
+                    partition=0)
+                acked += batch * payload_bytes
+            prod.close()
+            # Let the in-flight tail (the striped mode's last m stripes
+            # stream past the k-ack settle) drain: poll the counters
+            # until they stop moving.
+            last = -1
+            for _ in range(50):
+                m = cluster.client("rb-m").call(
+                    cluster.broker_addr(ctrl), {"type": "admin.metrics"},
+                    timeout=5.0)
+                counters = m["metrics"]["counters"]
+                total = (counters.get("repl.bytes", 0)
+                         + counters.get("stripes.bytes", 0))
+                if total == last:
+                    break
+                last = total
+                time.sleep(0.2)
+        finally:
+            cluster.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+        repl_bytes = (counters.get("repl.bytes", 0)
+                      + counters.get("stripes.bytes", 0))
+        out[mode] = {
+            "repl_bytes": int(repl_bytes),
+            "acked_payload_bytes": int(acked),
+            "per_acked_byte": round(repl_bytes / max(1, acked), 3),
+            "stripe_groups": int(counters.get("stripes.groups", 0)),
+        }
+    out["striped_vs_full"] = round(
+        out["striped"]["per_acked_byte"] / out["full"]["per_acked_byte"], 3)
+    return out
 
 
 def _run_codec(batch: int = 256, payload_bytes: int = 100,
@@ -1189,18 +2163,19 @@ HEADLINE_GATES = (
 )
 REGRESSION_PCT = 15.0
 
-# The artifact's keys: the reference `main()`'s, less those of the phases
-# not ported yet (spmd parity and scaling, replication bytes, group
-# consume, SLO convergence, split rebalance, consume fan-out, the
-# control-plane storm, the host-plane sweep), plus `card`.
+# The artifact's keys: the reference `main()`'s, in its order, plus `card`.
 RESULT_KEYS = (
     "metric", "value", "unit", "vs_baseline", "baseline_appends_per_sec",
     "config", "burst_window_appends_per_sec", "burst_window_config",
     "shipped_shape_appends_per_sec", "shipped_config",
     "p50_ack_ms", "p99_ack_ms", "p999_ack_ms", "round_rtt_ms",
-    "operating_curve", "consume_msgs_per_sec", "control_fusion_ab",
-    "codec_mb_per_sec", "codec_ab", "stripe_encode_mb_per_sec",
-    "readback",
+    "operating_curve", "consume_msgs_per_sec", "spmd_parity",
+    "spmd_scaling", "control_fusion_ab",
+    "codec_mb_per_sec", "codec_ab", "repl_bytes_per_acked_byte",
+    "stripe_encode_mb_per_sec", "readback", "host_plane_scaling",
+    "slo_convergence", "split_rebalance", "consume_fanout",
+    "control_plane_storm", "e2e_group_consume_msgs_per_sec",
+    "group_consume",
     "e2e_obs", "latency_decomposition", "admin_metrics",
     "e2e_appends_per_sec", "e2e_mb_per_sec", "e2e_acked",
     "e2e_offered_batches", "e2e_client_procs", "e2e_host_workers",
@@ -1386,7 +2361,7 @@ def _operating_curve_main(out_path: str, device=None) -> None:
 
 
 def _collect(device=None, depth: str | None = None, phase=None) -> dict:
-    """Every ported phase of `main()`, in the reference's order, on
+    """Every phase of the reference's `main()`, in its order, on
     `device` at `depth` ("full", or "short": the default on the CPU).
     `phase(name)`, when given, returns a context manager entered around
     each phase (the chip run counts kernel launches and device memory
@@ -1445,17 +2420,36 @@ def _collect(device=None, depth: str | None = None, phase=None) -> dict:
     with phase("consume"):
         consume_rate = _run_consume(consume_cfg, consumers=32,
                                     rows_per_part=128, device=dev)
+    with phase("spmd_parity"):
+        spmd = _run_spmd_parity(launches=d["parity_launches"], device=dev)
+    with phase("spmd_scaling"):  # its ranks are processes of their own
+        spmd_scaling = _run_spmd_scaling(device=dev)
     with phase("fusion_ab"):
         fusion_ab = _run_fusion_ab(launches=d["ab_launches"],
                                    control_launches=d["ab_launches"],
                                    windows=2, device=dev)
     with phase("codec"):
         codec_stats = _run_codec()
+    with phase("repl_bytes"):
+        repl_bytes = _run_repl_bytes(device=dev)
     with phase("stripe_encode"):
         stripe_encode = _run_stripe_encode(device=dev)
+    with phase("group_consume"):
+        group_consume = _run_group_consume(device=dev)
+    with phase("slo_convergence"):
+        slo_convergence = _run_slo_convergence(device=dev)
+    with phase("split_rebalance"):
+        split_rebalance = _run_split_rebalance(device=dev)
+    with phase("consume_fanout"):  # its brokers are processes of their own
+        consume_fanout = _run_consume_fanout(device=dev)
+    with phase("control_plane_storm"):
+        control_plane_storm = _run_control_plane_storm(device=dev)
     with phase("e2e"):
         e2e = _run_e2e(duration_s=d["e2e_s"], phases=d["e2e_phases"],
                        device=dev)
+    with phase("host_plane_scaling"):
+        host_plane_scaling = _run_host_plane_scaling(
+            duration_s=d["hp_s"], phases=d["hp_phases"], device=dev)
 
     result = {
         "metric": "committed_appends_per_sec",
@@ -1474,11 +2468,20 @@ def _collect(device=None, depth: str | None = None, phase=None) -> dict:
         "round_rtt_ms": round(rtt_ms, 3),
         "operating_curve": curve,
         "consume_msgs_per_sec": round(consume_rate, 1),
+        "spmd_parity": spmd,
+        "spmd_scaling": spmd_scaling,
         "control_fusion_ab": fusion_ab,
         "codec_mb_per_sec": codec_stats["codec_mb_per_sec"],
         "codec_ab": codec_stats,
+        "repl_bytes_per_acked_byte": repl_bytes,
         "stripe_encode_mb_per_sec": stripe_encode,
         "readback": "verified",
+        "host_plane_scaling": host_plane_scaling,
+        "slo_convergence": slo_convergence,
+        "split_rebalance": split_rebalance,
+        "consume_fanout": consume_fanout,
+        **control_plane_storm,
+        **group_consume,
         **e2e,
         "card": card,
     }
@@ -1529,9 +2532,14 @@ def _cli(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m ripplemq_tpu_torch.bench",
         description="The port's bench (see the module docstring).")
-    ap.add_argument("mode", nargs="?", choices=["operating_curve"],
+    ap.add_argument("mode", nargs="?", choices=[
+                        "operating_curve", "consume_fanout",
+                        "split_rebalance", "control_plane_storm"],
                     help="operating_curve: measure the (coalesce, chain "
-                         "depth) curve and write an slo_rails_file prior")
+                         "depth) curve and write an slo_rails_file prior; "
+                         "consume_fanout, split_rebalance, "
+                         "control_plane_storm: run that phase alone and "
+                         "print its JSON")
     ap.add_argument("out", nargs="?", default="slo_rails.json",
                     help="operating_curve's output file")
     ap.add_argument("--compare", metavar="BASELINE.json", default=None,
@@ -1546,6 +2554,17 @@ def _cli(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if args.mode == "operating_curve":
         _operating_curve_main(args.out, device=args.device)
+        return
+    if args.mode == "consume_fanout":
+        print(json.dumps({"consume_fanout":
+                          _run_consume_fanout(device=args.device)}))
+        return
+    if args.mode == "split_rebalance":
+        print(json.dumps({"split_rebalance":
+                          _run_split_rebalance(device=args.device)}))
+        return
+    if args.mode == "control_plane_storm":
+        print(json.dumps(_run_control_plane_storm(device=args.device)))
         return
     main(compare=args.compare, device=args.device, out_dir=args.out_dir)
 

@@ -17,9 +17,10 @@ reference's (`bench.py` at the repository root), on the CPU.
   readback, the control-only rounds writing no log row, and a flipped
   log byte failing the ring-tail check;
 - the DataPlane runners and the fusion A/B return the reference's keys,
-  consume count-exact; `main()`'s artifact has the reference's keys
-  less the phases not ported yet, and is archived as
-  BENCH_torch_r*.json only;
+  consume count-exact; `main()`'s artifact has the reference's keys in
+  its order (plus `card`), and is archived as BENCH_torch_r*.json only;
+  (the remaining runners, slice J, are held in
+  `test_torch_bench_{cluster,storm,spmd,procs}.py`);
 - the e2e client, a subprocess on the line protocol against 3 CPU
   brokers over TCP, is count-exact and never imports torch; `_run_e2e`
   at 8 partitions returns the reference's keys.
@@ -57,14 +58,6 @@ ENGINE = dict(partitions=8, replicas=3, slots=256, slot_bytes=128,
               max_offset_updates=4)
 CHAIN = 4
 LAUNCHES = 12  # 12 x 4 rounds x 16 rows = 768 rows > 256 slots: wraps
-
-# The reference main()'s phases this slice leaves to the next one: their
-# own artifact keys, and the runners whose dicts splat into it.
-SLICE_J_KEYS = {"spmd_parity", "spmd_scaling", "repl_bytes_per_acked_byte",
-                "host_plane_scaling", "slo_convergence", "split_rebalance",
-                "consume_fanout"}
-SLICE_J_SPLATS = ("_run_control_plane_storm", "_run_group_consume")
-
 
 def _ref_cfg(**kw):
     from ripplemq_tpu.core.config import EngineConfig as RefConfig
@@ -528,37 +521,41 @@ def _stub_common(monkeypatch, mod):
         "_run_codec": lambda *a, **k: dict(codec),
         "_run_stripe_encode": lambda *a, **k: 1.0,
         "_run_e2e": lambda *a, **k: dict(e2e),
+        "_run_spmd_parity": lambda *a, **k: {},
+        "_run_spmd_scaling": lambda *a, **k: {},
+        "_run_repl_bytes": lambda *a, **k: {},
+        "_run_slo_convergence": lambda *a, **k: {},
+        "_run_split_rebalance": lambda *a, **k: {},
+        "_run_consume_fanout": lambda *a, **k: {},
+        "_run_host_plane_scaling": lambda *a, **k: {},
+        # the two runners whose dicts splat into the artifact
+        "_run_control_plane_storm": lambda *a, **k: {
+            "control_plane_storm": {}},
+        "_run_group_consume": lambda *a, **k: {
+            "e2e_group_consume_msgs_per_sec": 1.0, "group_consume": {}},
     }
     for name, fn in stubs.items():
         monkeypatch.setattr(mod, name, fn)
 
 
-def _reference_main_keys(monkeypatch, capsys) -> tuple:
+def _reference_main_keys(monkeypatch, capsys) -> list:
     _stub_common(monkeypatch, ref)
-    for name in ("_run_spmd_parity", "_run_spmd_scaling", "_run_repl_bytes",
-                 "_run_slo_convergence", "_run_split_rebalance",
-                 "_run_consume_fanout", "_run_host_plane_scaling"):
-        monkeypatch.setattr(ref, name, lambda *a, **k: {})
-    splat = set()
-    for name in SLICE_J_SPLATS:
-        key = f"sentinel{name}"
-        splat.add(key)
-        monkeypatch.setattr(ref, name, lambda *a, _k=key, **k: {_k: 1})
     archived = []
     monkeypatch.setattr(ref, "_archive_result",
                         lambda result: archived.append(result) or "x")
     ref.main()
     keys = list(json.loads(capsys.readouterr().out.splitlines()[-1]))
     assert archived and list(archived[0]) == keys
-    return keys, SLICE_J_KEYS | splat
+    return keys
 
 
 def test_result_keys_are_the_reference_main_keys_less_slice_j(
         monkeypatch, capsys):
-    ref_keys, slice_j = _reference_main_keys(monkeypatch, capsys)
-    assert slice_j <= set(ref_keys)
-    want = [k for k in ref_keys if k not in slice_j]
-    assert [k for k in bench.RESULT_KEYS if k != "card"] == want
+    """Since slice J, nothing is left out: the artifact's keys are the
+    reference main()'s, in its order, plus `card` (the name is kept)."""
+    ref_keys = _reference_main_keys(monkeypatch, capsys)
+    assert [k for k in bench.RESULT_KEYS if k != "card"] == ref_keys
+    assert bench.RESULT_KEYS[-1] == "card"
 
 
 def test_main_archives_bench_torch_rounds_with_the_result_keys(
@@ -613,7 +610,9 @@ def test_main_compare_gates_against_an_nvidia_baseline(
 
 
 @pytest.mark.parametrize("argv", [[], ["operating_curve", "rails.json"],
-                                  ["--compare", "x.json"]])
+                                  ["--compare", "x.json"],
+                                  ["consume_fanout"], ["split_rebalance"],
+                                  ["control_plane_storm"]])
 def test_cli_raises_without_device_when_no_gpu(monkeypatch, tmp_path, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -732,10 +731,12 @@ def test_run_e2e_returns_the_reference_keys_count_exact():
 
 
 def test_port_bench_never_imports_the_reference():
-    """The port's bench and its control_ab twin import neither JAX nor the
-    reference package nor the root bench, anywhere in their source."""
+    """The port's bench and its control_ab and spmd_scaling twins import
+    neither JAX nor the reference package nor the root bench, anywhere in
+    their source."""
     for rel in ("ripplemq_tpu_torch/bench.py",
-                "ripplemq_tpu_torch/profiles/control_ab.py"):
+                "ripplemq_tpu_torch/profiles/control_ab.py",
+                "ripplemq_tpu_torch/profiles/spmd_scaling.py"):
         tree = ast.parse(open(os.path.join(REPO, rel)).read())
         roots = set()
         for node in ast.walk(tree):

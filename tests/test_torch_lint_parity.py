@@ -83,6 +83,15 @@ PORT_ONLY_THREADS = {
      _BENCH + "_e2e_client_main"),
     (_BENCH + "_e2e_client_main.drainer", "bench-e2e-drainer-*",
      _BENCH + "_e2e_client_main"),
+    # slice J's runners
+    (_BENCH + "_run_group_consume.member", "bench-group-*-*",
+     _BENCH + "_run_group_consume"),
+    (_BENCH + "_storm_arm.worker", "bench-storm-*", _BENCH + "_storm_arm"),
+    (_BENCH + "_storm_arm.beater", "bench-storm-beat-*",
+     _BENCH + "_storm_arm"),
+    (_BENCH + "_fanout_arm.member", "bench-fanout-*", _BENCH + "_fanout_arm"),
+    (_BENCH + "_run_split_rebalance.offered", "bench-split-producer",
+     _BENCH + "_run_split_rebalance"),
 }
 
 

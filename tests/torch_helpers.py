@@ -228,3 +228,44 @@ class TwinFns:
 
     def read_offset(self, st, *args):
         return self._query("read_offset", st, *args)
+
+
+def ref_return_keys(func: str, source: str = "bench.py"):
+    """The keys of the dict literal a reference function returns, read
+    from its source (`bench.py` at the repository root by default):
+    {key: the nested literal's keys in the same form, or None}. `func`
+    may name a nested function as "outer.inner" (the reference's
+    `one_arm`s). A function with no dict-literal return gives None."""
+    import ast
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    node = ast.parse(open(os.path.join(root, source)).read())
+    for name in func.split("."):
+        node = next(n for n in ast.walk(node)
+                    if isinstance(n, ast.FunctionDef) and n.name == name)
+
+    def keys(v):
+        if not isinstance(v, ast.Dict):
+            return None
+        return {k.value: keys(x) for k, x in zip(v.keys, v.values)
+                if isinstance(k, ast.Constant)}
+
+    def own_returns(n):  # not those of functions nested in `n`
+        for child in ast.iter_child_nodes(n):
+            if isinstance(child, ast.FunctionDef):
+                continue
+            if isinstance(child, ast.Return):
+                yield child
+            yield from own_returns(child)
+
+    rets = [r.value for r in own_returns(node)
+            if isinstance(r.value, ast.Dict)]
+    return keys(rets[-1]) if rets else None
+
+
+def dict_keys(d):
+    """`d`'s keys in `ref_return_keys`'s form (nested dicts recursed)."""
+    if not isinstance(d, dict):
+        return None
+    return {k: dict_keys(v) for k, v in d.items()}
