@@ -75,6 +75,7 @@ FAST_MODULES = (
     "test_torch_model_check",
     "test_torch_multichip_smoke",
     "test_torch_obs",
+    "test_torch_obs_dispatch",
     "test_torch_observability",
     "test_torch_packaging",
     "test_torch_pid_expiry",

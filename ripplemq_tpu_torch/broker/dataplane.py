@@ -66,6 +66,7 @@ import time
 
 from ripplemq_tpu_torch.core.config import ALIGN, ROW_HEADER as _HDR, EngineConfig
 from ripplemq_tpu_torch.obs.lockwitness import make_condition, make_lock
+from ripplemq_tpu_torch.obs.trace import STEP_STATES
 from ripplemq_tpu_torch.core.encode import (
     decode_entries_with_pos,
     pack_payload_rows,
@@ -129,18 +130,23 @@ class _CommittedFetch:
     event recorded after it on the same stream (the step thread's).
     `result()` waits for that event only — not for rounds dispatched
     later — and returns the numpy view. On the CPU the tensor is already
-    on the host."""
+    on the host. Given `start`, a timing event recorded on the stream
+    before the dispatch (on CUDA), the end event times too, and
+    `device_us()` is the dispatch's device time once `result()` has
+    returned (None for a dispatch not timed)."""
 
-    __slots__ = ("_host", "_event")
+    __slots__ = ("_host", "_event", "_start")
 
-    def __init__(self, committed: torch.Tensor) -> None:
+    def __init__(self, committed: torch.Tensor, start=None) -> None:
+        self._start = start
         if committed.device.type == "cuda":
             self._host = torch.empty(committed.shape, dtype=committed.dtype,
                                      pin_memory=True)
             self._host.copy_(committed, non_blocking=True)
             # Blocking sync: a waiting resolver sleeps instead of spinning
             # a core the step and producer threads need.
-            self._event = torch.cuda.Event(blocking=True)
+            self._event = torch.cuda.Event(blocking=True,
+                                           enable_timing=start is not None)
             self._event.record(torch.cuda.current_stream(committed.device))
         else:
             self._host = committed
@@ -150,6 +156,11 @@ class _CommittedFetch:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+    def device_us(self) -> Optional[int]:
+        if self._start is None:
+            return None
+        return int(self._start.elapsed_time(self._event) * 1e3)
 
 
 def _row_lens(rows: np.ndarray) -> np.ndarray:
@@ -199,6 +210,11 @@ _CACHE_LAPPED = object()
 # serve them without a device dispatch (see read()'s gap-generation
 # probe discipline).
 _CACHE_GAP = object()
+
+# One dispatch in this many is timed on the device (engine.device_us):
+# recording the start event lets the step thread's GIL go, and under load
+# taking it back waits behind the other threads, up to a switch interval.
+_DEVICE_TIMING_EVERY = 8
 
 # Settled batches remembered per (pid, slot) for producer-sequence
 # dedup. The producer only ever replays sequences it never saw acked —
@@ -311,8 +327,21 @@ class DataPlane:
         # Hot-path metric handles resolved ONCE (registry lookups lock).
         self._m_submits = m.counter("produce.submits")
         self._m_messages = m.counter("produce.messages")
-        self._m_offsets = m.counter("produce.offset_commits")
         self._m_dispatch_us = m.histogram("engine.dispatch_us")
+        # The step thread's states (see _run), one histogram each.
+        self._m_step_us = {s: m.histogram(f"engine.{s}_us")
+                           for s in STEP_STATES}
+        # Device time of one dispatch in _DEVICE_TIMING_EVERY, from CUDA
+        # timing events on a local plane's stream (a lockstep or spmd
+        # plane's rounds run on every rank, and this process sees one).
+        self._m_device_us = m.histogram("engine.device_us")
+        self._time_device = (m.enabled and mode == "local"
+                             and self.device.type == "cuda")
+        self._m_warm_us = m.histogram("engine.warm_us")
+        # The device lock's holds outside the step thread, by holder.
+        self._held_read = m.hold_timer("dataplane.lock_hold_us.read")
+        self._held_fetch = m.hold_timer("dataplane.lock_hold_us.fetch")
+        self._held_other = m.hold_timer("dataplane.lock_hold_us.other")
         self._m_chain_rounds = m.histogram("engine.chain_rounds")
         self._m_commit_wait_us = m.histogram("settle.commit_wait_us")
         self._m_enter_wait_us = m.histogram("settle.enter_wait_us")
@@ -321,7 +350,6 @@ class DataPlane:
         self._m_release_us = m.histogram("settle.release_us")
         self._m_retries = m.counter("produce.round_retries")
         self._m_retry_exhausted = m.counter("produce.retry_exhausted")
-        self._m_read_calls = m.counter("read.calls")
         self._m_read_msgs = m.counter("read.messages")
         # Durability mode for the settle-path persist: "async" defers
         # fsync to the store's flusher thread at flush_interval_s cadence
@@ -1028,14 +1056,14 @@ class DataPlane:
     def log_ends(self) -> np.ndarray:
         """Per-replica log ends [R, P] — the lag map the repair loop uses
         to find replicas needing resync."""
-        with self._device_lock:
+        with self._device_lock, self._held_fetch:
             return self._fetch_state("log_end")
 
     def current_terms(self) -> np.ndarray:
         """Max observed term per partition [P] (election planners must
         propose above this, or granted-then-unadvertised elections would
         deadlock retries)."""
-        with self._device_lock:
+        with self._device_lock, self._held_fetch:
             return self._fetch_state("current_term").max(axis=0)
 
     # ------------------------------------------------------------- submits
@@ -1289,7 +1317,6 @@ class DataPlane:
         if not updates or any(not 0 <= s < C for s, _ in updates):
             fut.set_exception(ValueError(f"bad consumer slots in {updates}"))
             return fut
-        self._m_offsets.inc()
         with self._lock:
             self._offsets.setdefault(slot, []).append(
                 _PendingOffsets([(int(s), int(o)) for s, o in updates], fut,
@@ -1330,7 +1357,6 @@ class DataPlane:
         commit, which no read path ever serves)."""
         if not 0 <= slot < self.cfg.partitions:
             raise ValueError(f"partition slot {slot} out of range")
-        self._m_read_calls.inc()
         gc_races = 0
         while True:
             with self._lock:
@@ -1665,9 +1691,11 @@ class DataPlane:
             for f in noop
         ])
         dev = self._arg_device
+        stamp = self.metrics.clock if self.metrics.enabled else None
         for A in buckets:
             if self._stop.is_set():
                 return  # fenced/stopped mid-warm: the programs are moot
+            t0 = stamp() if stamp else 0.0
             A = max(1, min(A, P))
             # One lock hold per dispatch: elections/traffic (takeover
             # duty) interleave between the warm-up calls instead of
@@ -1676,7 +1704,7 @@ class DataPlane:
                     _stage(np.zeros((A, B, SB), np.uint8), dev),
                     _stage(np.full((A,), -1, np.int32), dev),
                     _stage(alive, dev))
-            with self._device_lock:
+            with self._device_lock, self._held_other:
                 try:
                     self._state, _ = self.fns.step_sparse(self._state, *args)
                 except Exception as e:
@@ -1687,17 +1715,19 @@ class DataPlane:
                         _stage(np.zeros((K, A, B, SB), np.uint8), dev),
                         _stage(np.full((K, A), -1, np.int32), dev),
                         _stage(alive, dev))
-                with self._device_lock:
+                with self._device_lock, self._held_other:
                     try:
                         self._state, _ = self.fns.step_many_sparse(
                             self._state, *args)
                     except Exception as e:
                         self._adopt_lockstep_state(e)
                         raise
+            if stamp:
+                self._m_warm_us.observe(stamp() - t0)
         if self._stop.is_set():
             return
         zeros = _stage(np.zeros((self.read_q,), np.int32), dev)
-        with self._device_lock:
+        with self._device_lock, self._held_other:
             self.fns.read_many(self._state, zeros, zeros, zeros)
 
     def _stage_input(self, inp: StepInput) -> StepInput:
@@ -1755,7 +1785,7 @@ class DataPlane:
                 reps[i], parts[i], offs[i] = replica, slot, offset
             try:
                 reps, parts, offs = (_stage(x, self._arg_device) for x in (reps, parts, offs))
-                with self._device_lock:
+                with self._device_lock, self._held_read:
                     data, lens, count = self.fns.read_many(
                         self._state, reps, parts, offs
                     )
@@ -1842,7 +1872,7 @@ class DataPlane:
         rounds possibly landing between them, so either may lead the
         other by in-flight rounds — treat a small commit/log_end skew as
         pipelining, not corruption."""
-        with self._device_lock:
+        with self._device_lock, self._held_fetch:
             commit = self._fetch_state("commit").max(axis=0)  # [P]
         with self._lock:
             ends = self._log_end.copy()
@@ -1860,7 +1890,7 @@ class DataPlane:
 
     def commit_index(self, slot: int) -> int:
         """Max commit index across replicas (the leader's view)."""
-        with self._device_lock:
+        with self._device_lock, self._held_fetch:
             commit = self._fetch_state("commit")  # [R, P]
         return int(commit[:, slot].max())
 
@@ -1880,7 +1910,7 @@ class DataPlane:
             alive = self.alive.copy()
             quorum = self.quorum.copy()
         args = [_stage(x, self._arg_device) for x in (cand, cterm, alive, quorum)]
-        with self._device_lock:
+        with self._device_lock, self._held_other:
             try:
                 self._state, elected, votes = self.fns.vote(
                     self._state, *args
@@ -1903,7 +1933,7 @@ class DataPlane:
         mask = np.zeros((self.cfg.partitions,), bool)
         mask[list(partitions)] = True
         mask = _stage(mask, self._arg_device)
-        with self._device_lock:
+        with self._device_lock, self._held_other:
             try:
                 self._state = self.fns.resync(
                     self._state, np.int32(src_slot), np.int32(dst_slot), mask
@@ -2202,7 +2232,30 @@ class DataPlane:
                      "counts": {s: int(counts[s]) for s in blocks}}
 
     def _run(self) -> None:
-        """Step thread: drain → dispatch → hand off to the resolver."""
+        """Step thread: drain → dispatch → hand off to the resolver.
+
+        With the registry on, the loop reads the clock once at each
+        boundary between its states, so the states tile the thread's
+        time: `coalesce` (the pending count and the burst sleep), `drain`
+        (a drain that returned work), `idle` (a drain that returned none,
+        and the wait for work), `stage`, `lock_wait` and `launch` (the
+        three parts of `engine.dispatch_us`), and `handoff` (to the
+        resolvers, through the in-flight queue's backpressure). Each
+        state's µs go to `engine.<state>_us`, and the sums since the
+        previous dispatch ride its flight-recorder event as
+        `<state>_us` (obs/trace.py `step_state_at` lays them out)."""
+        stamp = self.metrics.clock if self.metrics.enabled else None
+        t_prev = stamp() if stamp else 0.0
+        since = dict.fromkeys(STEP_STATES, 0)
+
+        def close(state: str, t: float) -> None:
+            # The state that began at the last boundary ends at `t`.
+            nonlocal t_prev
+            d = int(t * 1e6) - int(t_prev * 1e6)
+            self._m_step_us[state].observe_int(d)
+            since[state] += d
+            t_prev = t
+
         while not self._stop.is_set():
             ctx = None
             try:
@@ -2218,6 +2271,8 @@ class DataPlane:
                         )
                     if 0 < npend < self.cfg.max_batch:
                         time.sleep(self.coalesce_s)  # gather the burst
+                        if stamp:
+                            close("coalesce", stamp())
                 work = self._drain()
                 if work is None:
                     self._work.clear()
@@ -2225,9 +2280,13 @@ class DataPlane:
                     # drainable when the resolver clears the slot, which
                     # does not set the work event.
                     self._work.wait(timeout=0.02)
+                    if stamp:
+                        close("idle", stamp())
                     continue
-                inp, ctx = work
                 t_dispatch = self.metrics.clock()
+                if stamp:
+                    close("drain", t_dispatch)
+                inp, ctx = work
                 # The round's inputs go to the device as queued copies
                 # (pinned staging), so this thread never waits for the
                 # rounds already in flight.
@@ -2236,7 +2295,16 @@ class DataPlane:
                                                 "alive", "quorum", "trim"))
                 step = (self.fns.step_sparse if len(ctx["chain"]) == 1
                         else self.fns.step_many_sparse)
+                if stamp:
+                    close("stage", stamp())
                 with self._device_lock:
+                    if stamp:
+                        close("lock_wait", stamp())
+                    start = None
+                    if (self._time_device and
+                            self.dispatches % _DEVICE_TIMING_EVERY == 0):
+                        start = torch.cuda.Event(enable_timing=True)
+                        start.record(torch.cuda.current_stream(self.device))
                     try:
                         self._state, out = step(self._state, *args)
                     except Exception as e:
@@ -2244,7 +2312,7 @@ class DataPlane:
                         raise
                     # Queued right behind the dispatch on its stream; the
                     # resolver waits on this fetch's event alone.
-                    fetch = _CommittedFetch(out.committed)
+                    fetch = _CommittedFetch(out.committed, start)
                 self.dispatches += 1
                 live_rounds = sum(
                     1 for rc in ctx["chain"]
@@ -2256,15 +2324,23 @@ class DataPlane:
                 # ctx so the downstream stages (commit fetch, settle
                 # entry, acks, persist, release) measure against it.
                 t_dispatched = self.metrics.clock()
-                self._m_dispatch_us.observe(t_dispatched - t_dispatch)
-                self._m_chain_rounds.observe_int(live_rounds)
-                ctx["t_dispatch"] = t_dispatch
-                ctx["t_dispatched"] = t_dispatched
+                if stamp:
+                    close("launch", t_dispatched)
+                # Recorded next to t_dispatched: the event's wall-clock
+                # stamp is the end of `launch`, the states lie before it.
                 self.recorder.record(
                     "dispatch", round_seq=self._dispatch_seq,
                     rounds=live_rounds,
                     slots=len(ctx["appends"]) + len(ctx["offsets"]),
+                    **({f"{k}_us": v for k, v in since.items()}
+                       if stamp else {}),
                 )
+                since = dict.fromkeys(STEP_STATES, 0)
+                self._m_dispatch_us.observe_int(
+                    int(t_dispatched * 1e6) - int(t_dispatch * 1e6))
+                self._m_chain_rounds.observe_int(live_rounds)
+                ctx["t_dispatch"] = t_dispatch
+                ctx["t_dispatched"] = t_dispatched
                 with self._lock:
                     self._busy_a |= ctx["appends"].keys()
                     self._busy_o |= ctx["offsets"].keys()
@@ -2276,6 +2352,8 @@ class DataPlane:
                 # Blocks at pipeline_depth outstanding rounds (backpressure).
                 self._inflight.put((inp, ctx, fetch))
                 ctx = None  # now owned by the resolver
+                if stamp:
+                    close("handoff", stamp())
             except Exception as e:  # the step thread must never die: fail
                 # this round's futures and keep serving (one bad round must
                 # not wedge the whole data plane).
@@ -2292,6 +2370,11 @@ class DataPlane:
                         # these slots' shadow before their next round.
                         self._shadow_dirty |= ctx["appends"].keys()
                     self._fail_round(ctx, e)
+                # The error's time is in no state: the next dispatch's
+                # states start here.
+                if stamp:
+                    t_prev = stamp()
+                since = dict.fromkeys(STEP_STATES, 0)
 
     def _resolve_loop(self) -> None:
         """Resolver thread: land rounds — several run concurrently, so
@@ -2323,6 +2406,9 @@ class DataPlane:
         entry = None
         try:
             committed = fetch.result()  # the ONE device fetch
+            device_us = fetch.device_us()
+            if device_us is not None:
+                self._m_device_us.observe_int(device_us)
             # Stage 2: dispatch → committed-fetch landed (device execute
             # + D2H). Wall time since the launch, so queueing behind
             # other dispatches is IN the number — this is the latency a
@@ -2818,7 +2904,7 @@ class DataPlane:
             self._pid_inflight = {}
         image = ReplicaState(*(_stage(getattr(image, f), self._arg_device)
                                for f in ReplicaState._fields))
-        with self._device_lock:
+        with self._device_lock, self._held_other:
             self._state = self.fns.init_from(image)
         self.recorder.record(
             "install", partitions_with_data=int((ends > 0).sum()),
@@ -2915,7 +3001,7 @@ class DataPlane:
         device_error = None
         P = self.cfg.partitions
         try:
-            with self._device_lock:
+            with self._device_lock, self._held_fetch:
                 dev_terms = self._fetch_state("current_term").max(axis=0)
                 dev_commit = self._fetch_state("commit").max(axis=0)
                 dev_ends = self._fetch_state("log_end").max(axis=0)

@@ -419,6 +419,12 @@ class BrokerServer:
         # and refusal paths alike): the p99 the SLO controller's consume
         # twin steers toward slo_p99_consume_ms via read_coalesce_s.
         self._m_consume_ack_us = self.metrics.histogram("consume.ack_us")
+        # Inside produce.ack_us: the wait on the request's rounds
+        # (_produce_admitted), so the rest is the broker's own handling.
+        self._m_round_wait_us = self.metrics.histogram(
+            "produce.round_wait_us")
+        # Consume answers that carry no message (a tail at the log's end).
+        self._m_consume_empty = self.metrics.counter("consume.empty")
         # Codec stats are process-global: set them symmetrically (last
         # constructed broker wins) rather than latching off forever —
         # a one-way disable would freeze the A/B's obs=True arm when an
@@ -456,6 +462,7 @@ class BrokerServer:
                 self.info.host, self.info.port, self.dispatch,
                 workers=config.rpc_workers,
                 raw_handler=self._raw_produce,
+                metrics=self.metrics,
             )
 
         # --- committed-round store ---
@@ -2481,6 +2488,7 @@ class BrokerServer:
         base0 = None
         committed = 0
         first_err: Optional[Exception] = None
+        t_wait = self.metrics.clock()
         for n, fut in zip(chunk_sizes, futs):
             try:
                 base = fut()
@@ -2491,6 +2499,7 @@ class BrokerServer:
             if base0 is None and first_err is None:
                 base0 = base
             committed += n
+        self._m_round_wait_us.observe(self.metrics.clock() - t_wait)
         if first_err is not None:
             return {"ok": False, "error": f"not_committed: {first_err}",
                     "committed": committed}
@@ -2527,7 +2536,10 @@ class BrokerServer:
                               {"op": "consume"})
               if self.spans is not None else NULL_SPAN)
         try:
-            return self._consume_checked(req, tctx=sp.ctx)
+            resp = self._consume_checked(req, tctx=sp.ctx)
+            if resp.get("ok") and not resp.get("messages"):
+                self._m_consume_empty.inc()
+            return resp
         finally:
             sp.end()
             self._m_consume_ack_us.observe(self.metrics.clock() - t0)

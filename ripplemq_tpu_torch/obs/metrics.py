@@ -146,6 +146,39 @@ _NULL_GAUGE = _NullGauge()
 _NULL_HISTOGRAM = _NullHistogram()
 
 
+class HoldTimer:
+    """Times the holds of one lock into a histogram: entered right after
+    the lock is taken and left right before it is let go (`with lock,
+    timer:`). One start stamp serves every thread, because the lock lets
+    one holder in at a time. Two clock reads a hold."""
+
+    __slots__ = ("_h", "_clock", "_t0")
+
+    def __init__(self, h: Histogram, clock: Callable[[], float]) -> None:
+        self._h = h
+        self._clock = clock
+        self._t0 = 0.0
+
+    def __enter__(self) -> None:
+        self._t0 = self._clock()
+
+    def __exit__(self, *exc) -> None:
+        self._h.observe(self._clock() - self._t0)
+
+
+class _NullHoldTimer:
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        pass
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_NULL_HOLD_TIMER = _NullHoldTimer()
+
+
 class Metrics:
     """Named-metric registry. Metric OBJECTS are memoized and returned
     by reference — instrumented code resolves its metrics once (at
@@ -201,6 +234,13 @@ class Metrics:
             if h is None:
                 h = self._histograms[name] = Histogram()
             return h
+
+    def hold_timer(self, name: str) -> HoldTimer:
+        """A `HoldTimer` into histogram `name`; a disabled registry's
+        reads no clock."""
+        if not self.enabled:
+            return _NULL_HOLD_TIMER  # type: ignore[return-value]
+        return HoldTimer(self.histogram(name), self.clock)
 
     def snapshot(self) -> dict:
         """Wire-encodable summary: counters/gauges verbatim, histograms

@@ -112,3 +112,39 @@ class FlightRecorder:
             {**fields, "seq": seq, "t": t, "type": etype}
             for seq, t, etype, fields in entries
         ]
+
+
+# The DataPlane step thread's states, in the order they fall between two
+# `dispatch` events (broker/dataplane.py `_run`): the previous dispatch's
+# hand-off to the resolvers, the waits for work, the burst sleep, the
+# drain that found work, and the three parts of the dispatch. Each
+# `dispatch` event carries `<state>_us`, the µs spent in each since the
+# previous one, and is stamped right after `launch` ends.
+STEP_STATES = ("handoff", "idle", "coalesce", "drain", "stage", "lock_wait",
+               "launch")
+
+
+def step_state_at(events: list[dict], t_ns: int) -> Optional[str]:
+    """The state the step thread was in at wall-clock instant `t_ns`
+    (`time.time_ns()`, the clock of this recorder and of
+    `torch.profiler`'s events), from a recorder snapshot's `dispatch`
+    events; None before the first event's states begin, after the last
+    event, or in a stretch no event covers. Each event's states are laid
+    back to back, in `STEP_STATES` order, ending at the event's `t`:
+    where several waits for work and burst sleeps came between two
+    dispatches, their sums stand in one block each."""
+    t = t_ns / 1e9
+    for e in events:
+        if e.get("type") != "dispatch" or "launch_us" not in e:
+            continue
+        if e["t"] < t:
+            continue
+        begin = e["t"] - sum(e[f"{s}_us"] for s in STEP_STATES) / 1e6
+        if t < begin:
+            return None
+        for s in STEP_STATES:
+            begin += e[f"{s}_us"] / 1e6
+            if t < begin:
+                return s
+        return STEP_STATES[-1]
+    return None

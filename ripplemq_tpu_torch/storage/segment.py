@@ -223,11 +223,12 @@ class SegmentStore:
         if metrics is not None and getattr(metrics, "enabled", True):
             self._h_append = metrics.histogram("store.append_us")
             self._h_fsync = metrics.histogram("store.fsync_us")
+            self._h_protect = metrics.histogram("store.protect_us")
             self._c_append_bytes = metrics.counter("store.append_bytes")
             self._c_records = metrics.counter("store.append_records")
             self._clock = metrics.clock
         else:
-            self._h_append = self._h_fsync = None
+            self._h_append = self._h_fsync = self._h_protect = None
             self._c_append_bytes = self._c_records = None
             self._clock = None
         self.segment_bytes = segment_bytes
@@ -519,6 +520,7 @@ class SegmentStore:
     def _erasure_worker(self) -> None:
         from ripplemq_tpu_torch.storage.erasure import protect_store
 
+        t0 = self._clock() if self._h_protect is not None else 0.0
         try:
             protect_store(self.directory, device=self.device)
         except Exception as e:  # derived data: never take the store down
@@ -529,6 +531,8 @@ class SegmentStore:
             with self._lock:
                 self.erasure_errors.append(f"{type(e).__name__}: {e}")
                 del self.erasure_errors[:-20]
+        if self._h_protect is not None:
+            self._h_protect.observe(self._clock() - t0)
 
     def gc(self) -> list[int]:
         """Delete the oldest sealed segments while their total size

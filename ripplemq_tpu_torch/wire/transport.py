@@ -255,8 +255,19 @@ class TcpServer:
         handler: Handler,
         workers: int = 16,
         raw_handler: Optional[Callable[[bytes], Optional[dict]]] = None,
+        metrics=None,
     ) -> None:
         self._handler = handler
+        # Telemetry (obs.Metrics, usually the owning broker's): a
+        # request's wait in the pool's queue, its decode, and its reply.
+        # None or a disabled registry reads no clock.
+        if metrics is not None and metrics.enabled:
+            self._clock = metrics.clock
+            self._h_queue = metrics.histogram("rpc.queue_us")
+            self._h_decode = metrics.histogram("rpc.decode_us")
+            self._h_reply = metrics.histogram("rpc.reply_us")
+        else:
+            self._clock = None
         # Raw-frame dispatch hook: sees the UNDECODED body before the
         # codec runs and may answer the request itself (the broker's
         # produce fast path peeks routing scalars and ships the frame
@@ -303,7 +314,9 @@ class TcpServer:
                     req_id, body = codec.read_frame(conn)
                 except (ConnectionError, ValueError, OSError):
                     return
-                self._pool.submit(self._handle_one, conn, write_lock, req_id, body)
+                t_read = self._clock() if self._clock else 0.0
+                self._pool.submit(self._handle_one, conn, write_lock, req_id,
+                                  body, t_read)
         finally:
             with self._lock:
                 self._conns.discard(conn)
@@ -312,7 +325,18 @@ class TcpServer:
             except OSError:
                 pass
 
-    def _handle_one(self, conn, write_lock, req_id: int, body: bytes) -> None:
+    def _handle_one(self, conn, write_lock, req_id: int, body: bytes,
+                    t_read: float = 0.0) -> None:
+        """Answer one frame. Timed, from `t_read` (when its connection
+        read it): `rpc.queue_us` until a pool thread takes it,
+        `rpc.decode_us` for the raw hook and the decode (a frame the raw
+        hook answers is handled there, and is not timed as decoded),
+        `rpc.reply_us` for the encode, the wait for the connection's
+        write lock and the write."""
+        clock = self._clock
+        if clock:
+            t_start = clock()
+            self._h_queue.observe(t_start - t_read)
         try:
             resp = (self._raw_handler(body)
                     if self._raw_handler is not None else None)
@@ -320,14 +344,20 @@ class TcpServer:
                 request = codec.decode(body)
                 if not isinstance(request, dict):
                     raise ValueError("request must be a dict")
+                if clock:
+                    self._h_decode.observe(clock() - t_start)
                 resp = self._handler(request)
         except Exception as e:
             resp = {"ok": False, "error": f"internal: {type(e).__name__}: {e}"}
+        if clock:
+            t_handled = clock()
         try:
             with write_lock:
                 codec.write_frame(conn, req_id, codec.encode(resp))
         except OSError:
             pass  # client went away; nothing to do
+        if clock:
+            self._h_reply.observe(clock() - t_handled)
 
     def stop(self) -> None:
         self._stop.set()
